@@ -1,0 +1,185 @@
+"""Greedy NMS over a padded box set (port of ``trcnn/ops/nms.py``).
+
+``nms_padded`` has the contract of the JAX function: optional score sort
+(stable, ties to the lower index), suppression by the division-free
+``IoU > t`` predicate, optional same-group-only suppression, and compaction
+of the first ``max_out`` survivors into indices plus a validity mask
+(padding slots hold index 0).
+
+The suppression itself runs in :func:`greedy_keep`: on a CUDA tensor it
+launches kernel K1 (``csrc/nms.cu``), on a CPU tensor it runs
+:func:`greedy_keep_plain`, the plain PyTorch version the kernel is held
+against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from trcnn_torch import _build
+from trcnn_torch.ops.boxes import box_overlap_gt
+
+_NEG_INF = float("-inf")
+_BLOCK = 64            # boxes per suppression-mask word (csrc/nms.cu)
+_ROW_CHUNK = 1024      # rows of the pairwise predicate built at a time
+
+
+def greedy_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+                      max_out: int, groups: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over boxes already in score order.
+
+    keep[c] = valid[c] & !any_{r<c}(keep[r] & IoU(r, c) > t), solved by
+    Jacobi iteration from keep = valid: the recurrence is triangular, so its
+    fixpoint is unique and equal to the sequential greedy result.
+
+    Returns (keep_pos (max_out,) int32 positions of the first max_out
+    survivors, 0 in padding slots; keep_valid (max_out,) bool).
+    """
+    n = boxes.shape[0]
+    dev = boxes.device
+    over = torch.empty((n, n), dtype=torch.bool, device=dev)
+    for r0 in range(0, n, _ROW_CHUNK):
+        over[r0:r0 + _ROW_CHUNK] = box_overlap_gt(boxes[r0:r0 + _ROW_CHUNK],
+                                                  boxes, iou_thresh)
+    over = torch.triu(over, diagonal=1)
+    if groups is not None:
+        over &= groups[:, None] == groups[None, :]
+    keep = valid.clone()
+    while True:
+        new = valid & ~(over & keep[:, None]).any(dim=0)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    sel = torch.sort(torch.where(keep, pos, n)).values[:max_out]
+    if sel.shape[0] < max_out:
+        sel = torch.cat([sel, sel.new_full((max_out - sel.shape[0],), n)])
+    keep_valid = sel < n
+    return torch.where(keep_valid, sel, 0).to(torch.int32), keep_valid
+
+
+_NMS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p]
+
+
+def greedy_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+                     max_out: int, groups: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K1: :func:`greedy_keep_plain` on the card."""
+    n = boxes.shape[0]
+    dev = boxes.device
+    if dev.type != "cuda":
+        raise ValueError(f"greedy_keep_cuda needs CUDA tensors, got {dev}")
+    if boxes.dtype != torch.float32 or boxes.shape != (n, 4) or not boxes.is_contiguous():
+        raise ValueError(f"boxes must be contiguous float32 (N, 4), got "
+                         f"{boxes.dtype} {tuple(boxes.shape)}")
+    if valid.dtype != torch.bool or valid.shape != (n,) or not valid.is_contiguous():
+        raise ValueError("valid must be a contiguous bool (N,) tensor")
+    if groups is not None and (groups.dtype != torch.int32 or groups.shape != (n,)
+                               or not groups.is_contiguous()):
+        raise ValueError("groups must be a contiguous int32 (N,) tensor")
+    for t in (valid, groups):
+        if t is not None and t.device != dev:
+            raise ValueError("all NMS inputs must be on one device")
+    if max_out < 1:
+        raise ValueError("max_out must be positive")
+    col_blocks = -(-n // _BLOCK)
+    if col_blocks * 8 > 48 * 1024:
+        raise ValueError(f"{n} boxes exceed the reduce pass's shared memory")
+    mask = torch.empty((n, col_blocks), dtype=torch.int64, device=dev)
+    keep_pos = torch.empty(max_out, dtype=torch.int32, device=dev)
+    num_kept = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = _build.function("nms", "trcnn_nms", _NMS_ARGTYPES)
+    err = fn(_build.ptr(boxes),
+             _build.ptr(groups) if groups is not None else None,
+             _build.ptr(valid), n, iou_thresh, max_out, _build.ptr(mask),
+             _build.ptr(keep_pos), _build.ptr(num_kept), _build.stream_of(dev))
+    _build.check(err, "trcnn_nms")
+    _build.count_launch("nms")
+    keep_valid = torch.arange(max_out, device=dev) < num_kept
+    return keep_pos, keep_valid
+
+
+def greedy_keep(boxes, valid, iou_thresh, max_out, groups=None):
+    """Dispatch: kernel K1 for CUDA tensors, the plain version for CPU."""
+    if boxes.device.type == "cuda":
+        return greedy_keep_cuda(boxes, valid, iou_thresh, max_out, groups)
+    if boxes.device.type == "cpu":
+        return greedy_keep_plain(boxes, valid, iou_thresh, max_out, groups)
+    raise ValueError(f"no NMS for device {boxes.device}")
+
+
+def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+               iou_thresh: float, max_out: int, presorted: bool = False,
+               groups: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over a padded set: (N, 4) boxes, (N,) scores and valid.
+
+    ``presorted``: the caller guarantees score order already (e.g. straight
+    out of ``masked_topk_payload``), so the sort is skipped.  ``groups``:
+    optional (N,) int32 ids; only same-group pairs suppress.
+
+    Returns (keep_idx (max_out,) int32 indices into the inputs, score
+    ordered, 0 in padding slots; keep_valid (max_out,) bool).
+    """
+    boxes = boxes.float()
+    if groups is not None:
+        groups = groups.to(torch.int32)
+    if presorted:
+        order = None
+        sboxes, svalid, sgroups = boxes.contiguous(), valid.contiguous(), groups
+    else:
+        masked = torch.where(valid, scores.float(), _NEG_INF)
+        neg, order = torch.sort(-masked, stable=True)
+        sboxes = boxes[order]
+        svalid = -neg > _NEG_INF
+        sgroups = groups[order] if groups is not None else None
+    keep_pos, keep_valid = greedy_keep(sboxes, svalid, iou_thresh, max_out,
+                                       sgroups)
+    keep_idx = keep_pos if order is None else order[keep_pos.long()]
+    keep_idx = torch.where(keep_valid, keep_idx, 0).to(torch.int32)
+    return keep_idx, keep_valid
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                   iou_thresh: float, score_thresh: float, max_per_class: int,
+                   max_total: int, class_offset: int = 1):
+    """Test-time per-class NMS + merge (``trcnn/ops/nms.py:249``).
+
+    Args: boxes (R, C, 4) class-specific or (R, 4) shared; scores (R, C)
+    with background at column 0; valid (R,).  Returns (det_boxes (D, 4),
+    det_scores (D,), det_classes (D,) int32, det_valid (D,)), D = max_total,
+    score-sorted.
+
+    Only the single-call path is ported: with ``max_per_class >= max_total``
+    (the VOC and COCO test configs) per-class NMS + merge is exactly one
+    grouped greedy NMS over the flattened (class, roi) set.
+    """
+    if max_per_class < max_total:
+        raise NotImplementedError(
+            "multiclass_nms with max_per_class < max_total (the per-class "
+            "path of trcnn/ops/nms.py) is not ported yet")
+    r, c = scores.shape
+    fg = c - class_offset
+    if boxes.dim() == 2:
+        boxes = boxes[:, None, :].expand(r, c, 4)
+    cls_boxes = boxes[:, class_offset:, :].transpose(0, 1)      # (FG, R, 4)
+    cls_scores = scores[:, class_offset:].transpose(0, 1)       # (FG, R)
+    cls_valid = valid[None, :] & (cls_scores > score_thresh)
+    flat_boxes = cls_boxes.reshape(fg * r, 4)
+    flat_scores = cls_scores.reshape(fg * r)
+    flat_valid = cls_valid.reshape(fg * r)
+    flat_groups = torch.arange(fg, dtype=torch.int32,
+                               device=scores.device).repeat_interleave(r)
+    keep_idx, keep_valid = nms_padded(flat_boxes, flat_scores, flat_valid,
+                                      iou_thresh, max_total, groups=flat_groups)
+    k = keep_idx.long()
+    det_scores = torch.where(keep_valid, flat_scores[k], 0.0)
+    det_boxes = torch.where(keep_valid[:, None], flat_boxes[k], 0.0)
+    det_classes = torch.where(keep_valid, keep_idx // r + class_offset, 0)
+    return det_boxes, det_scores, det_classes.to(torch.int32), keep_valid
