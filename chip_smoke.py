@@ -6,16 +6,24 @@
 Phases, one line each, any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the CUDA kernels K1-K3 from ``trcnn_torch/csrc``;
+2. build the CUDA kernels K1-K4 from ``trcnn_torch/csrc``, all at once;
 3. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with both times (CUDA events, median after warm-up);
+   paths' shapes, with both times (CUDA events, median after warm-up) and
+   the least time the card could take (``bound_ms``, from this run's
+   inputs);
 4. a small config through the port on the card and on the CPU (plain
-   versions) with the same weights: the detections must agree;
-5. the full-width VGG-16 VOC slice through ``trcnn_torch.entry`` (seeded
-   weights, bf16, uint8 608x1024 canvas): three one-image requests and one
-   batch of 8, with the launch counters of all three kernels required to
-   move; then one float32 request whose kernel inputs are captured and
-   replayed through the plain versions.
+   versions) with the same weights: the detections must agree, and one
+   training forward with the same sampling draws must make the same
+   sampling decisions and losses;
+5. the two main paths at full width, VGG-16 VOC, seeded weights, bf16 with
+   float32 master weights, uint8 608x1024 canvases, each with the launch
+   counters set to 0 before it and read after it:
+   - detect, through ``trcnn_torch.entry.entry``: three one-image requests
+     and one batch of 8; K1-K3 must move;
+   - train, through ``trcnn_torch.entry.train_entry``: one cold step and 6
+     timed steps at batch 8; K1-K4 must move;
+6. one float32 request and one float32 train step whose kernel inputs are
+   captured and replayed through the plain versions.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -24,6 +32,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -36,9 +45,31 @@ import numpy as np
 KERNELS = {
     "nms": ("trcnn_torch/csrc/nms.cu", "trcnn/ops/nms_pallas.py:216"),
     "roi_pool": ("trcnn_torch/csrc/roi_pool.cu", "trcnn/ops/roi_pool_pallas.py:451"),
+    "roi_pool_bwd": ("trcnn_torch/csrc/roi_pool_bwd.cu", "trcnn/ops/roi_pool_pallas.py:571"),
     "stem": ("trcnn_torch/csrc/stem.cu", "trcnn/ops/stem_pallas.py:226"),
 }
+# kernels each main path must launch
+REQUIRED = {"detect": ("nms", "roi_pool", "stem"),
+            "train": ("nms", "roi_pool", "roi_pool_bwd", "stem")}
 STEM_F32_RTOL = 1e-4
+ROI_BWD_F32_RTOL = 1e-5
+# one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, bf16 tensor-core
+# and float32 (CUDA core) operations/s
+HBM_BPS = 3.35e12
+BF16_OPS = 989e12
+F32_OPS = 67e12
+
+
+def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
+    """The least time the card could take: the larger of moving the bytes
+    at HBM rate and doing the operations at the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / ops_rate * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def phase(msg: str) -> None:
@@ -239,6 +270,47 @@ def check_stem(args, what, exact=False):
     return float(err.max())
 
 
+# ---------------------------------------------------------------- K4 cases
+
+
+def check_roi_bwd(feat, rois, g, what, exact):
+    """exact: bit-equal (integer-valued g: every float32 sum is exact in any
+    order, so the winners and the sums must agree).  Otherwise float32
+    within ROI_BWD_F32_RTOL of the largest |dfeat|, bf16 within one bf16
+    ulp of it (the atomics add in another order)."""
+    import torch
+
+    from trcnn_torch.ops import roi_pool
+
+    k = roi_pool.roi_pool_backward_cuda(feat, rois, g)
+    p = roi_pool.roi_pool_backward_plain(feat, rois, g)
+    err = float((k.float() - p.float()).abs().max())
+    scale = float(p.float().abs().max())
+    if exact:
+        ok = torch.equal(bits(k), bits(p))
+        phase(f"  K4 {what}: {'bit-equal' if ok else 'NOT bit-equal'}, max abs err {err:.3e}")
+    else:
+        limit = (ROI_BWD_F32_RTOL * scale if feat.dtype == torch.float32
+                 else float(bf16_ulp(torch.tensor(scale))))
+        ok = err <= limit
+        phase(f"  K4 {what}: max abs err {err:.3e} (limit {limit:.3e} at scale {scale:.3e})")
+    if not ok:
+        raise AssertionError(f"K4 disagrees with the plain version: {what}")
+    return err
+
+
+def bin_cells(rois, h, w, out_size=7):
+    """Feature cells summed over every bin of every RoI, and the number of
+    non-empty bins: the work the RoI pool's data needs."""
+    from trcnn_torch.ops import roi_pool
+
+    hs, he, ws, we = roi_pool.roi_bin_bounds(rois, 1.0 / 16.0, out_size, h, w)
+    bh = (he - hs).clamp(min=0)[..., :, None]
+    bw = (we - ws).clamp(min=0)[..., None, :]
+    cells = bh * bw
+    return int(cells.sum()), int((cells > 0).sum())
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -278,17 +350,27 @@ def phase_kernels(dev):
     cases = [("6000->300 @0.7", nms_case(6000, 1), 0.7, 300),
              ("grouped 20x300->100 @0.3", epilogue_case(20, 300, 2), 0.3, 100),
              ("12000->2000 @0.7", nms_case(12000, 3), 0.7, 2000)]
-    timed = None
+    timed = []
     for what, case, t, k in cases:
         args = sorted_nms_inputs(*case, dev)
         err = max(err, check_nms_equal(args, t, k, what))
-        if timed is None:
-            timed = (args, t, k)
-    args, t, k = timed
+        timed.append((args, t, k))
+    # the train path's shape, timed apart (the record keeps the detect shape)
+    args, t, k = timed[2]
+    ms = cuda_time_ms(lambda: nms.greedy_keep_cuda(args[0], args[1], t, k, args[2]))
+    phase(f"  K1 time at 12000->2000 (train): kernel {ms:.4f} ms")
+    args, t, k = timed[0]
     ms = cuda_time_ms(lambda: nms.greedy_keep_cuda(args[0], args[1], t, k, args[2]))
     plain_ms = cuda_time_ms(lambda: nms.greedy_keep_plain(args[0], args[1], t, k, args[2]))
-    phase(f"  K1 time at 6000->300: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rec["nms"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # the greedy pass needs each kept box's predicate against every later box
+    # (about 12 float32 operations each); bytes: boxes and flags in, keep out
+    pos, kv = nms.greedy_keep_cuda(args[0], args[1], t, k, args[2])
+    n = args[0].shape[0]
+    pairs = int((n - 1 - pos[kv].long()).sum())
+    b1 = bound(nbytes(args[0], args[1], args[2], pos, kv), 12.0 * pairs, F32_OPS)
+    phase(f"  K1 time at 6000->300: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}, {pairs} predicates)")
+    rec["nms"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b1)
 
     # K2: B=1 and B=8 x 300 RoIs on the VGG map (38 x 64 x 512), bf16 and f32
     err = 0.0
@@ -301,8 +383,37 @@ def phase_kernels(dev):
     feat_t = torch.from_numpy(feat).to(dev, torch.bfloat16)
     ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_cuda(feat_t, rois_t))
     plain_ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_plain(feat_t, rois_t))
-    phase(f"  K2 time at B=8 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rec["roi_pool"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    cells, _ = bin_cells(rois_t, 38, 64)
+    out_bytes = rois_t.shape[0] * rois_t.shape[1] * 49 * 512 * feat_t.element_size()
+    b2 = bound(nbytes(feat_t, rois_t) + out_bytes, cells * 512.0, F32_OPS)
+    phase(f"  K2 time at B=8 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b2['bound_ms']:.4f} ms ({b2['bound_by']})")
+    rec["roi_pool"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b2)
+
+    # K4: the training shape, B=8 x 128 RoIs on the VGG map, f32 and bf16:
+    # integer-valued g (bit-equal), on a tie-heavy map too, and real-valued g
+    err = 0.0
+    feat, rois = roi_case(8, 128, 30)
+    rng = np.random.default_rng(31)
+    g_int = rng.integers(-4, 5, (8, 128, 7, 7, 512)).astype(np.float32)
+    g_real = rng.standard_normal((8, 128, 7, 7, 512)).astype(np.float32)
+    ties = rng.integers(0, 3, feat.shape).astype(np.float32)
+    rois_t = torch.from_numpy(rois).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        for what, f, g, exact in (("integer g", feat, g_int, True),
+                                  ("integer g, tie-heavy map", ties, g_int, True),
+                                  ("real g", feat, g_real, False)):
+            feat_t = torch.from_numpy(f).to(dev, dt)
+            g_t = torch.from_numpy(g).to(dev, dt)
+            err = max(err, check_roi_bwd(feat_t, rois_t, g_t, f"B=8x128 {dt} {what}", exact))
+    ms = cuda_time_ms(lambda: roi_pool.roi_pool_backward_cuda(feat_t, rois_t, g_t))
+    plain_ms = cuda_time_ms(lambda: roi_pool.roi_pool_backward_plain(feat_t, rois_t, g_t),
+                            warmup=1, iters=5)
+    cells, bins = bin_cells(rois_t, 38, 64)
+    b4 = bound(nbytes(feat_t, rois_t, g_t, feat_t), (cells + bins) * 512.0, F32_OPS)
+    phase(f"  K4 time at B=8x128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
+    rec["roi_pool_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b4)
 
     # K3: the full canvas, integer-valued (exact) and real-valued, f32 and bf16
     err = 0.0
@@ -315,8 +426,11 @@ def phase_kernels(dev):
                                       exact=integer))
     ms = cuda_time_ms(lambda: stem.stem_block1_cuda(*args))
     plain_ms = cuda_time_ms(lambda: stem.stem_block1_plain(*args))
-    phase(f"  K3 time at (1,608,1024,3) bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    rec["stem"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    hw = 608 * 1024
+    b3 = bound(nbytes(*args) + hw // 4 * 64 * 2, 2.0 * hw * 64 * (27 + 576), BF16_OPS)
+    phase(f"  K3 time at (1,608,1024,3) bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b3['bound_ms']:.4f} ms ({b3['bound_by']})")
+    rec["stem"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b3)
     return rec
 
 
@@ -331,7 +445,7 @@ def phase_small_parity(dev):
     cfg = FasterRCNNConfig(head_hidden=32, rpn_channels=16,
                            proposals=ProposalConfig(pre_nms_topk_test=192,
                                                     post_nms_topk_test=24))
-    cpu = make_model(cfg).init(torch.Generator().manual_seed(42)).eval()
+    cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(42)).eval()
     gpu = make_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(42)
@@ -354,6 +468,152 @@ def phase_small_parity(dev):
     phase(f"small config: card == CPU plain path, {int(ref.valid.sum())} detections")
 
 
+def train_cfg():
+    """The small training config of tests/test_cross_impl_train.py."""
+    from trcnn_torch.config import (AnchorConfig, FasterRCNNConfig, ImageConfig,
+                                    ProposalConfig, ProposalTargetConfig)
+
+    return FasterRCNNConfig(
+        head_hidden=64, rpn_channels=64, head_dropout=0.0,
+        anchors=AnchorConfig(scales=(2.0, 4.0, 8.0)),
+        proposals=ProposalConfig(pre_nms_topk_train=512, post_nms_topk_train=64,
+                                 pre_nms_topk_test=512, post_nms_topk_test=64),
+        proposal_targets=ProposalTargetConfig(rois_per_image=16),
+        image=ImageConfig(pad_h=128, pad_w=192))
+
+
+def train_proposals(model, images, im_info):
+    """The proposals ``losses`` samples from, computed apart."""
+    import torch
+
+    from trcnn_torch.ops.proposal import proposal_layer
+
+    with torch.no_grad():
+        rpn = model.rpn(model.extractor(model._prepare(images, im_info)))
+        props = [proposal_layer(rpn.fg_probs[i], rpn.deltas[i], *im_info[i], train=True,
+                                anchor_cfg=model.cfg.anchors, cfg=model.cfg.proposals)
+                 for i in range(images.shape[0])]
+    return torch.stack([p.rois for p in props]), torch.stack([p.valid for p in props])
+
+
+def phase_train_parity(dev):
+    """One training forward of the small config on the card and on the CPU
+    (plain versions), float32, the same weights and the same sampling draws
+    (drawn on the CPU: a CUDA generator gives other numbers).  Anchor-target
+    decisions and sample counts must be equal, the losses within 1e-4."""
+    import torch
+
+    from trcnn_torch.models import make_model
+    from trcnn_torch.ops.anchors import shifted_anchors
+    from trcnn_torch.targets import anchor_targets
+
+    cfg = train_cfg()
+    cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
+    info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
+    gtb = torch.zeros((2, 4, 4))
+    gtb[0, :3] = torch.tensor([[10, 12, 70, 60], [90, 30, 170, 100], [40, 70, 110, 115.0]])
+    gtb[1, :2] = torch.tensor([[20, 15, 95, 80], [100, 40, 150, 95.0]])
+    gtl = torch.tensor([[3, 7, 12, 0], [5, 18, 0, 0]], dtype=torch.int32)
+    gtv = torch.tensor([[True, True, True, False], [True, True, False, False]])
+    # spread the RPN scores (a 0.01-sigma init is tie-dominated), as the
+    # JAX fixture does
+    with torch.no_grad():
+        rpn = cpu.rpn(cpu.extractor(images))
+        cpu.rpn.rpn_cls_score.weight.mul_(2.0 / float(rpn.logits.std()))
+        cpu.rpn.rpn_bbox_pred.weight.mul_(0.15 / float(rpn.deltas.std()))
+    gpu = make_model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    uni = cpu.draw_uniforms(2, (8, 12), 4, torch.Generator().manual_seed(4))
+    args = (images, info, gtb, gtl, gtv)
+    on_dev = lambda ts: [t.to(dev) for t in ts]  # noqa: E731
+
+    anchors = shifted_anchors(8, 12, cfg.anchors)
+    at_c = anchor_targets(anchors, gtb, gtv, info[:, 0], info[:, 1], uni["at_fg"],
+                          uni["at_bg"], cfg.anchor_targets)
+    at_g = anchor_targets(*on_dev((anchors, gtb, gtv, info[:, 0], info[:, 1], uni["at_fg"],
+                                   uni["at_bg"])), cfg.anchor_targets)
+    if not (torch.equal(at_g.labels.cpu(), at_c.labels)
+            and torch.equal(at_g.num_fg.cpu(), at_c.num_fg)):
+        raise AssertionError("small config: anchor-target decisions differ")
+
+    gpu_uni = {k: v.to(dev) for k, v in uni.items()}
+    with torch.no_grad():
+        ref = cpu.losses(*args, generator=torch.Generator(), uniforms=uni)
+        got = gpu.losses(*on_dev(args), generator=torch.Generator(device=dev), uniforms=gpu_uni)
+    props_c = train_proposals(cpu, images, info)
+    props_g = [t.cpu() for t in train_proposals(gpu, *on_dev((images, info)))]
+    same = torch.equal(props_g[1], props_c[1]) and torch.allclose(props_g[0], props_c[0],
+                                                                   rtol=1e-5, atol=1e-3)
+    if not same:
+        phase("  small config: the card's proposals differ from the CPU's (a score "
+              "rounds differently); losses compared on the CPU's proposals")
+        with torch.no_grad():
+            got = gpu.losses(*on_dev(args), generator=torch.Generator(device=dev),
+                             uniforms=gpu_uni, proposals=on_dev(props_c))
+    for k in ("num_fg_anchors", "num_fg_rois"):
+        if float(got[k]) != float(ref[k]):
+            raise AssertionError(f"small config: {k} {float(got[k])} vs CPU {float(ref[k])}")
+    worst = 0.0
+    for k in ("loss", "rpn_cls_loss", "rpn_bbox_loss", "cls_loss", "bbox_loss"):
+        rel = abs(float(got[k]) - float(ref[k])) / abs(float(ref[k]))
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"small config: {k} {float(got[k])} vs CPU {float(ref[k])}")
+    phase(f"small config training: card == CPU plain path, proposals "
+          f"{'equal' if same else 'differ'}, fg anchors {float(ref['num_fg_anchors'])}, "
+          f"fg rois {float(ref['num_fg_rois'])}, losses within {worst:.2e} relative")
+
+
+# kernel-name fragments -> what they are, for the profile's breakdown
+KERNEL_GROUPS = (("trcnn_nms", "K1 nms"), ("roi_pool_fwd", "K2 roi_pool"),
+                 ("roi_pool_bwd", "K4 roi_pool_bwd"), ("stem_", "K3 stem"),
+                 ("gemm", "matmul/conv"), ("conv", "matmul/conv"), ("xmma", "matmul/conv"),
+                 ("cutlass", "matmul/conv"), ("nvjet", "matmul/conv"), ("cudnn", "matmul/conv"))
+
+
+def profile_window(run, n, what):
+    """``run`` n times under torch.profiler: device kernel time per call by
+    group, the largest other kernels, and the device's busy share (the union
+    of kernel intervals over the span from the first kernel's start to the
+    last one's end).  Prints "no device time" if the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        phase(f"  profile {what}: the profiler saw no device time")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    span = max(e for _, e in spans) - spans[0][0]
+    groups, other = {}, {}
+    for e in kernels:
+        t = (e.time_range.end - e.time_range.start) / 1e3 / n
+        g = next((label for frag, label in KERNEL_GROUPS if frag in e.name.lower()), None)
+        if g is None:
+            other[e.name[:60]] = other.get(e.name[:60], 0.0) + t
+            g = "other"
+        groups[g] = groups.get(g, 0.0) + t
+    phase(f"  profile {what}, {n} calls: device span {span / 1e3 / n:.3f} ms per call, busy "
+          f"{busy / span * 100:.1f}%; kernel ms per call: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    phase("    largest other kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+
+
 def check_dets(dets, b, d=100):
     import torch
 
@@ -366,6 +626,12 @@ def check_dets(dets, b, d=100):
         raise AssertionError("non-finite detections")
     if int(dets.valid.sum()) == 0:
         raise AssertionError("no detections")
+
+
+def require_launches(path, launches):
+    missing = [k for k in REQUIRED[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the {path} path never launched {missing}")
 
 
 def phase_slice(dev):
@@ -399,9 +665,7 @@ def phase_slice(dev):
     check_dets(dets8, 8)
     launches = dict(_build.launch_counts)
     phase(f"  launches over 3 requests + one batch of 8: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+    require_launches("detect", launches)
 
     warm = []
     for _ in range(5):
@@ -419,61 +683,182 @@ def phase_slice(dev):
           f"{', '.join(f'{v:.2f}' for v in lat)}; warm median {statistics.median(warm):.2f}")
     phase(f"  b=8: {statistics.median(b8) * 1e3:.2f} ms per batch, "
           f"{8 / statistics.median(b8):.2f} img/s")
+    profile_window(lambda: fn(model, images8, im_info8), 3, "detect b=8")
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model
     return launches
 
 
-def phase_capture(dev):
-    """One float32 request; each kernel's actual inputs are recorded and
-    replayed through its plain version."""
+def check_step(m, step):
     import torch
 
-    from trcnn_torch.entry import entry
+    vals = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"step {step}: non-finite metrics {vals}")
+    if not (vals["rpn_bbox_loss"] > 0 and vals["bbox_loss"] > 0 and vals["num_fg_rois"] > 0):
+        raise AssertionError(f"step {step}: degenerate losses {vals}")
+    return vals
+
+
+def phase_train(dev):
+    """The full-width training step through train_entry: one cold step, 6
+    timed ones; the parameters move after the first, the frozen ones never;
+    then one step split into forward / backward / optimizer."""
+    import torch
+
+    from trcnn_torch import _build
+    from trcnn_torch.entry import train_entry
+    from trcnn_torch.train import step_generator
+    from trcnn_torch.train.optim import global_norm, is_frozen
+    from trcnn_torch.train.step import BATCH_KEYS
+
+    t0 = time.perf_counter()
+    step_fn, (state, batch) = train_entry(dev)
+    torch.cuda.synchronize()
+    model = state.model
+    phase(f"train: VOC VGG-16 bf16 compute, f32 master weights, head_hidden "
+          f"{model.cfg.head_hidden}, batch {batch['images'].shape[0]} uint8 "
+          f"{tuple(batch['images'].shape[1:3])}, built in {time.perf_counter() - t0:.1f} s")
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launch_counts()
+    times, logs = [], []
+    for i in range(7):
+        t0 = time.perf_counter()
+        m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        logs.append(check_step(m, i))
+        if i == 0:
+            for k, p in model.named_parameters():
+                moved = not torch.equal(p.detach(), before[k])
+                if moved == is_frozen(k):
+                    raise AssertionError(f"after step 1, {k} {'moved' if moved else 'did not move'}")
+    launches = dict(_build.launch_counts)
+    phase(f"  launches over 7 train steps: {launches}")
+    require_launches("train", launches)
+    for i, v in enumerate(logs):
+        phase(f"  step {i}: " + ", ".join(f"{k} {x:.5g}" for k, x in v.items()))
+    warm = statistics.median(times[1:])
+    phase(f"  step ms: cold {times[0]:.2f}, warm {', '.join(f'{t:.2f}' for t in times[1:])}; "
+          f"median {warm:.2f} ms, {batch['images'].shape[0] / warm * 1e3:.2f} img/s")
+    phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one more step split into stages on the device timeline (CUDA events)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.train()
+    gen = step_generator(0, state.step, dev)
+    ev[0].record()
+    out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen)
+    ev[1].record()
+    model.zero_grad(set_to_none=True)
+    out["loss"].backward()
+    ev[2].record()
+    state.optimizer.step(state.step, global_norm(p.grad for p in model.parameters()
+                                                 if p.grad is not None))
+    ev[3].record()
+    state.step += 1
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    phase(f"  one step split (CUDA events): forward {split[0]:.2f} ms, backward "
+          f"{split[1]:.2f} ms, optimizer {split[2]:.2f} ms")
+    profile_window(lambda: step_fn(state, batch), 3, "train step b=8")
+    del model, state, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def recording(captured):
+    """Wrap every kernel wrapper so that each call's inputs (cloned) and
+    output land in ``captured[name]``."""
+    import torch
+
     from trcnn_torch.ops import nms, roi_pool, stem
 
-    captured = {"nms": [], "roi_pool": [], "stem": []}
+    targets = {"nms": (nms, "greedy_keep_cuda"), "roi_pool": (roi_pool, "roi_max_pool_cuda"),
+               "roi_pool_bwd": (roi_pool, "roi_pool_backward_cuda"),
+               "stem": (stem, "stem_block1_cuda")}
     originals = {}
+    for key, (mod, name) in targets.items():
+        orig = originals[key] = getattr(mod, name)
 
-    def recorder(mod, name, key):
-        orig = getattr(mod, name)
-        originals[(mod, name)] = orig
-
-        def wrapped(*args):
-            out = orig(*args)
-            captured[key].append(([a.clone() if torch.is_tensor(a) else a for a in args], out))
+        def wrapped(*args, _orig=orig, _key=key):
+            out = _orig(*args)
+            captured.setdefault(_key, []).append(
+                ([a.clone() if torch.is_tensor(a) else a for a in args], out))
             return out
 
         setattr(mod, name, wrapped)
-
-    recorder(nms, "greedy_keep_cuda", "nms")
-    recorder(roi_pool, "roi_max_pool_cuda", "roi_pool")
-    recorder(stem, "stem_block1_cuda", "stem")
     try:
-        fn, (model, image, im_info) = entry(dev, dtype=torch.float32)
-        dets = fn(model, image, im_info)
-        torch.cuda.synchronize()
+        yield
     finally:
-        for (mod, name), orig in originals.items():
-            setattr(mod, name, orig)
-    check_dets(dets, 1)
-    for key, calls in captured.items():
-        if not calls:
-            raise AssertionError(f"f32 request did not reach {key}")
-    for args, (kp, kv) in captured["nms"]:
+        for key, (mod, name) in targets.items():
+            setattr(mod, name, originals[key])
+
+
+def replay(captured, what):
+    """Each captured call through its plain version: K1 equal, K2 bit-equal,
+    K3 and K4 within their float32 tolerances."""
+    import torch
+
+    from trcnn_torch.ops import nms, roi_pool, stem
+
+    for args, (kp, kv) in captured.get("nms", []):
         pp, pv = nms.greedy_keep_plain(*args)
         if not (torch.equal(kv, pv) and torch.equal(kp, pp)):
-            raise AssertionError("K1 differs from plain on the request's inputs")
-    for args, out in captured["roi_pool"]:
+            raise AssertionError(f"K1 differs from plain on the {what}'s inputs")
+    for args, out in captured.get("roi_pool", []):
         if not torch.equal(bits(out), bits(roi_pool.roi_max_pool_plain(*args))):
-            raise AssertionError("K2 differs from plain on the request's inputs")
-    for args, out in captured["stem"]:
+            raise AssertionError(f"K2 differs from plain on the {what}'s inputs")
+    for args, out in captured.get("stem", []):
         p = stem.stem_block1_plain(*args)
         err = float((out - p).abs().max())
         if err > STEM_F32_RTOL * float(p.abs().max()):
-            raise AssertionError(f"K3 differs from plain on the request's inputs: {err}")
-    phase(f"f32 request: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())};"
-          f" plain replay agrees")
+            raise AssertionError(f"K3 differs from plain on the {what}'s inputs: {err}")
+    worst = 0.0
+    for args, out in captured.get("roi_pool_bwd", []):
+        p = roi_pool.roi_pool_backward_plain(*args)
+        err = float((out - p).abs().max())
+        worst = max(worst, err / max(float(p.abs().max()), 1e-30))
+        if err > ROI_BWD_F32_RTOL * float(p.abs().max()):
+            raise AssertionError(f"K4 differs from plain on the {what}'s inputs: {err}")
+    phase(f"f32 {what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())};"
+          f" plain replay agrees" + (f" (K4 within {worst:.2e} of the largest |dfeat|)"
+                                     if "roi_pool_bwd" in captured else ""))
+
+
+def phase_capture(dev):
+    """One float32 request and one float32 train step (batch 2); each
+    kernel's actual inputs are recorded and replayed through its plain
+    version."""
+    import torch
+
+    from trcnn_torch.entry import entry, train_entry
+
+    captured = {}
+    with recording(captured):
+        fn, (model, image, im_info) = entry(dev, dtype=torch.float32)
+        dets = fn(model, image, im_info)
+        torch.cuda.synchronize()
+    check_dets(dets, 1)
+    del model
+    for key in REQUIRED["detect"]:
+        if not captured.get(key):
+            raise AssertionError(f"f32 request did not reach {key}")
+    replay(captured, "request")
+
+    captured = {}
+    with recording(captured):
+        step_fn, (state, batch) = train_entry(dev, dtype=torch.float32, batch_size=2)
+        check_step(step_fn(state, batch), 0)
+        torch.cuda.synchronize()
+    del state
+    for key in REQUIRED["train"]:
+        if not captured.get(key):
+            raise AssertionError(f"f32 train step did not reach {key}")
+    replay(captured, "train step")
 
 
 def main() -> int:
@@ -492,10 +877,13 @@ def main() -> int:
     phase_build()
     rec = phase_kernels(dev)
     phase_small_parity(dev)
-    launches = phase_slice(dev)
+    phase_train_parity(dev)
+    by_path = {"detect": phase_slice(dev), "train": phase_train(dev)}
     phase_capture(dev)
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
-                    replaces=KERNELS[name][1], launches=launches[name], **rec[name])
+                    replaces=KERNELS[name][1],
+                    launches=sum(p[name] for p in by_path.values()),
+                    launches_by_path={k: p[name] for k, p in by_path.items()}, **rec[name])
                for name in _build.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

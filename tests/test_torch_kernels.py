@@ -1,4 +1,4 @@
-"""Kernels K1-K3 against their plain PyTorch versions on the card.
+"""Kernels K1-K4 against their plain PyTorch versions on the card.
 
 These need a CUDA device and the CUDA toolkit; without a card they skip.
 The file imports no JAX, so on the card it runs without the repository's
@@ -78,6 +78,47 @@ def test_roi_pool_kernel_bit_equal(dev, dtype, b, r, h, w, c):
         k = roi_pool.roi_max_pool_cuda(feat, rois_t, p, 1 / 16)
         want = roi_pool.roi_max_pool_plain(feat, rois_t, p, 1 / 16)
         assert torch.equal(_bits(k), _bits(want))
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("b,r,h,w,c", [(1, 5, 7, 9, 3), (2, 37, 21, 30, 48),
+                                       (3, 61, 38, 64, 512)])
+def test_roi_pool_backward_kernel(dev, dtype, ties, b, r, h, w, c):
+    """K4: bit-equal to the plain version with integer-valued gradients
+    (every float32 sum exact in any order), the winners included when the
+    map is tie-heavy; within rounding with real-valued gradients (float32:
+    1e-5 of the largest |dfeat|; bf16: one bf16 ulp of it).  RoIs larger
+    than the map and beyond it (empty bins)."""
+    rng = np.random.default_rng(r + c)
+    x1 = rng.uniform(-60, w * 16 + 30, (b, r))
+    y1 = rng.uniform(-60, h * 16 + 30, (b, r))
+    rois = np.stack([x1, y1, x1 + rng.uniform(0, w * 20, (b, r)),
+                     y1 + rng.uniform(0, h * 20, (b, r))], -1).astype(np.float32)
+    rois[:, 0] = (w * 16 + 50, 0, w * 16 + 90, 40)
+    feat = (rng.integers(0, 3, (b, h, w, c)) if ties else rng.standard_normal((b, h, w, c)))
+    feat = torch.tensor(feat, dtype=dtype, device=dev)
+    rois_t = torch.tensor(rois, device=dev)
+    g_int = torch.tensor(rng.integers(-4, 5, (b, r, 7, 7, c)), dtype=dtype, device=dev)
+    before = _build.launch_counts["roi_pool_bwd"]
+    k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g_int)
+    assert _build.launch_counts["roi_pool_bwd"] == before + 1
+    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g_int)
+    assert k.dtype == dtype and torch.equal(_bits(k), _bits(want))
+    g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=dtype, device=dev)
+    k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g).float()
+    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g).float()
+    scale = float(want.abs().max())
+    limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    assert float((k - want).abs().max()) <= limit
+    # autograd through roi_max_pool reaches K2 and K4
+    x = feat.clone().requires_grad_()
+    roi_pool.roi_max_pool(x, rois_t).backward(g_int)
+    assert torch.equal(_bits(x.grad), _bits(roi_pool.roi_pool_backward_plain(feat, rois_t, g_int)))
 
 
 def _stem_args(rng, shape, integer, dev, dtype):

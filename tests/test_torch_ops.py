@@ -287,5 +287,5 @@ def test_prepare_uint8_matches_jax():
     info = np.asarray([[30, 40, 1.0], [32, 20, 1.0]], np.float32)
     want = jax_make_model(cfg).apply({}, jnp.asarray(img), jnp.asarray(info),
                                      method="_prepare")
-    got = make_model(cfg.replace(head_hidden=8, rpn_channels=8))._prepare(T(img), T(info))
+    got = make_model(cfg.replace(head_hidden=8, rpn_channels=8), device="cpu")._prepare(T(img), T(info))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -1,7 +1,11 @@
-"""Package-level checks of the port that need no JAX and no card: imports
-stay JAX-free, the entry point runs its graph on the CPU at a small config,
-and a tensor on any device other than the CPU reaches a kernel or raises."""
+"""Package-level checks of the port that need no card: imports load nothing
+of JAX or of the JAX package, the config copy equals the JAX package's,
+the entry point runs its graph on the CPU at a small config, the entry
+points default to the card, and a tensor on any device other than the CPU
+reaches a kernel or raises."""
 
+import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -9,9 +13,12 @@ import sys
 import pytest
 import torch
 
-from trcnn_torch import _build
-from trcnn_torch.entry import entry
+from trcnn import config as jax_config
+from trcnn_torch import _build, config
+from trcnn_torch.entry import entry, train_entry
+from trcnn_torch.models import make_model
 from trcnn_torch.ops import nms, roi_pool, stem
+from trcnn_torch.train import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,15 +28,30 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, trcnn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(trcnn_torch.__path__, 'trcnn_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 14, names\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')]\n"
-        "assert not bad, bad\n"
-        "ours = {m for m in sys.modules if m.split('.')[0] == 'trcnn'}\n"
-        "assert ours <= {'trcnn', 'trcnn.config'}, ours\n")
+        "assert len(names) >= 23, names\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'trcnn')]\n"
+        "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("make", ["voc_config", "coco_config"])
+def test_config_copy_equals_the_jax_package(make):
+    ours, theirs = getattr(config, make)(), getattr(jax_config, make)()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.anchors.num_anchors == theirs.anchors.num_anchors
+    assert ours.proposals.pre_nms_topk(True) == theirs.proposals.pre_nms_topk(True)
+
+
+def test_entry_points_default_to_the_card():
+    for fn in (make_model, entry, train_entry, Trainer.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():      # nothing falls back to the CPU
+        with pytest.raises((AssertionError, RuntimeError)):
+            make_model(_tiny_cfg())
 
 
 def _tiny_cfg():
@@ -73,13 +95,23 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     with pytest.raises(ValueError):
         roi_pool.roi_max_pool_cuda(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 2, 4)))
     with pytest.raises(ValueError):
+        roi_pool.roi_pool_backward_cuda(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 2, 4)),
+                                        torch.zeros((1, 2, 7, 7, 8)))
+    with pytest.raises(ValueError):
         stem.stem_block1_cuda(torch.zeros((1, 4, 4, 3)), *(
             torch.zeros(s) for s in ((64, 3, 3, 3), (64,), (64, 64, 3, 3), (64,))))
 
 
-def test_build_key_covers_every_source():
+def test_build_key_covers_every_source(tmp_path, monkeypatch):
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sources == sorted(f"{k}.cu" for k in _build.KERNELS)
+    # a shared header is part of the key: editing it rebuilds K2 and K4
+    key = _build.source_hash()
+    for p in _build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    (tmp_path / "roi_bins.cuh").write_text("// changed\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.source_hash() != key
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.build_dir().parent == _build.BUILD_ROOT
     assert _build.source_hash() == _build.source_hash()

@@ -45,7 +45,7 @@ def runs():
     jraw = jmodel.apply(params, images, im_info, method="detect")
     jdets = jax_postprocess(jraw, im_info, cfg, score_thresh=0.02)
 
-    model = make_model(cfg)
+    model = make_model(cfg, device="cpu")
     model.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, params)))
     with torch.no_grad():
         x = torch.tensor(np.asarray(images))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, loaded with ``ctypes``.  The build runs at first
+with a plain C interface, loaded with ``ctypes``; ``csrc/*.cuh`` are headers
+they share.  The build runs at first
 use, into ``build/kernels/<hash>/`` at the repository root, where ``<hash>``
 covers every source under ``csrc/`` and the compiler flags: a changed source
 gets a fresh build, an unchanged one loads the cached library.
@@ -25,7 +26,7 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("nms", "roi_pool", "stem")
+KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem")
 # no --use_fast_math: it makes '/' inexact, and RoI bin bounds need the IEEE
 # quotient (csrc/roi_pool.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,6 +12,11 @@ paths map one to one (``extractor/conv1_1/kernel`` <->
 
 fc6's rows keep the NHWC (h, w, c) flatten order, which is also the port's
 flatten order, and the RPN's channel order is kept as it is.
+
+The optimizer's momentum crosses through the same two functions: optax's
+``trace`` leaf tree (``TraceState.trace``, shaped like the parameter tree)
+maps to the port's momentum buffers (``CaffeSGD.state_dict()["momentum"]``,
+keyed like the parameters) and back, with the same layout maps.
 """
 
 from __future__ import annotations
@@ -68,5 +73,6 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         node = root
         for m in mods:
             node = node.setdefault(m, {})
-        node[name] = np.ascontiguousarray(arr)
+        node[name] = np.array(arr, order="C")    # a copy: the port updates in place
     return {"params": root}
+

@@ -1,30 +1,38 @@
-"""Faster R-CNN detect graph (port of ``trcnn/models/faster_rcnn.py``).
+"""Faster R-CNN (port of ``trcnn/models/faster_rcnn.py``).
 
 ``FasterRCNN.detect`` runs the inference path: uint8 canvas preparation,
 VGG-16 trunk, RPN, per-image proposal layer, RoI max-pool and the fc head.
 ``postprocess`` is the test-time epilogue: de-normalise and decode the
 class-specific deltas, clip, grouped per-class NMS, and map back to
-original-image coordinates.  Only the VGG-16 backbone and max pooling are
-ported so far.
+original-image coordinates.  ``FasterRCNN.losses`` is the training forward:
+anchor targets, the RPN losses, proposals (train capacities) on the
+detached RPN outputs, proposal targets and the head losses.  Only the
+VGG-16 backbone and max pooling are ported so far.
 """
 
 from __future__ import annotations
 
 import math
-from functools import lru_cache
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from trcnn_torch.config import FasterRCNNConfig
+from trcnn_torch.models.losses import masked_mean, smooth_l1, softmax_ce
 from trcnn_torch.models.roi_head import VGG16RoIHead
 from trcnn_torch.models.rpn import RPNHead
 from trcnn_torch.models.vgg16 import VGG16
-from trcnn_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from trcnn_torch.ops.anchors import shifted_anchors
+from trcnn_torch.ops.boxes import bbox_transform_inv, clip_boxes, device_constant
 from trcnn_torch.ops.nms import multiclass_nms
 from trcnn_torch.ops.proposal import proposal_layer
 from trcnn_torch.ops.roi_pool import roi_max_pool
+from trcnn_torch.targets import anchor_targets, proposal_targets
+
+# the uniform draws of the sampling layers: anchor targets over the anchors,
+# proposal targets over the candidates (proposals, then gt)
+UNIFORM_KEYS = ("at_fg", "at_bg", "pt_fg", "pt_bg")
 
 
 class RawDetections(NamedTuple):
@@ -43,10 +51,11 @@ class Detections(NamedTuple):
 
 class FasterRCNN(nn.Module):
     """VGG-16 trunk + RPN + RoI head.  ``dtype`` is the compute dtype; the
-    RPN outputs and the cls_score/bbox_pred layers stay float32."""
+    parameters, the RPN outputs and the cls_score/bbox_pred layers stay
+    float32."""
 
     def __init__(self, cfg: FasterRCNNConfig = FasterRCNNConfig(),
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
         if cfg.backbone != "vgg16":
             raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
@@ -58,7 +67,7 @@ class FasterRCNN(nn.Module):
         self.extractor = VGG16(dtype, device)
         self.rpn = RPNHead(512, cfg.anchors.num_anchors, cfg.rpn_channels, dtype, device)
         self.head = VGG16RoIHead(p * p * 512, cfg.num_classes, cfg.head_hidden,
-                                 dtype, device)
+                                 dtype, device, dropout_rate=cfg.head_dropout)
         self.register_buffer("pixel_means", torch.tensor(
             cfg.image.pixel_means_bgr, dtype=torch.float32, device=device),
             persistent=False)
@@ -98,14 +107,17 @@ class FasterRCNN(nn.Module):
                   & (xx < im_info[:, 1, None, None, None]))
         return torch.where(inside, x, 0.0)
 
-    def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor):
+    def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
         """feat (B, fH, fW, C), rois (B, R, 4) -> (cls_score (B, R, K),
         bbox_pred (B, R, 4K)); all images' crops go through the head as one
-        (B*R) batch."""
+        (B*R) batch.  ``generator`` draws the head's dropout masks (training);
+        None runs the deterministic head."""
         b, r = rois.shape[:2]
         pooled = roi_max_pool(feat, rois.contiguous(), self.cfg.roi.output_size,
                               self.cfg.roi.spatial_scale)
-        cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]))
+        cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]),
+                                         generator)
         return cls_score.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
 
     def detect(self, images: torch.Tensor, im_info: torch.Tensor) -> RawDetections:
@@ -125,6 +137,93 @@ class FasterRCNN(nn.Module):
                              cls_prob=torch.softmax(cls_score, dim=-1),
                              bbox_pred=bbox_pred)
 
+    def draw_uniforms(self, b: int, feat_hw: Tuple[int, int], num_gt: int,
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The sampling layers' uniforms for a batch of ``b`` images: at_fg
+        and at_bg (B, fH*fW*A) over the anchors, pt_fg and pt_bg
+        (B, post_nms_topk_train + G) over the proposal candidates, drawn in
+        that order from ``generator`` on its device."""
+        n = feat_hw[0] * feat_hw[1] * self.cfg.anchors.num_anchors
+        n_cand = self.cfg.proposals.post_nms_topk_train + num_gt
+        dev = generator.device
+        return {k: torch.rand((b, n if k.startswith("at") else n_cand),
+                              generator=generator, device=dev) for k in UNIFORM_KEYS}
+
+    def losses(self, images: torch.Tensor, im_info: torch.Tensor, gt_boxes: torch.Tensor,
+               gt_labels: torch.Tensor, gt_valid: torch.Tensor, generator: torch.Generator,
+               uniforms: Optional[Dict[str, torch.Tensor]] = None,
+               proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """Training forward: the four losses of approximate joint training.
+
+        images (B, H, W, 3) canvas (uint8 or mean-subtracted float), im_info
+        (B, 3); gt_boxes (B, G, 4) in canvas coordinates, gt_labels (B, G),
+        gt_valid (B, G) bool.  ``generator`` (on the images' device) draws
+        the sampling uniforms (:meth:`draw_uniforms`), then the dropout
+        masks.  ``uniforms`` hands in the four draws instead (the tests feed
+        the JAX package's).  ``proposals`` (rois (B, P, 4), valid (B, P))
+        replaces the proposal layer's output, so that two devices can be
+        compared on one proposal set.
+
+        Returns the seven-key dict of the JAX package: loss, rpn_cls_loss,
+        rpn_bbox_loss, cls_loss, bbox_loss (float32 scalars with autograd)
+        and num_fg_anchors, num_fg_rois (per-image means).
+        """
+        cfg = self.cfg
+        b = images.shape[0]
+        feat = self.extractor(self._prepare(images, im_info))
+        rpnout = self.rpn(feat)
+        _, fh, fw, _ = feat.shape
+        a = cfg.anchors.num_anchors
+        n = fh * fw * a
+        if uniforms is None:
+            uniforms = self.draw_uniforms(b, (fh, fw), gt_boxes.shape[1], generator)
+
+        # ---- RPN losses, normalised per image by the sampled-anchor count
+        anchors = shifted_anchors(fh, fw, cfg.anchors, device=feat.device)
+        at = anchor_targets(anchors, gt_boxes, gt_valid, im_info[:, 0], im_info[:, 1],
+                            uniforms["at_fg"], uniforms["at_bg"], cfg.anchor_targets)
+        # (B, fH, fW, 2, A) -> (B, N, 2) in anchor order (position major)
+        logits = rpnout.logits.reshape(b, fh * fw, 2, a).transpose(2, 3).reshape(b, n, 2)
+        deltas = rpnout.deltas.reshape(b, n, 4)
+        denom = at.num_examples.float().clamp(min=1.0)
+        ce = softmax_ce(logits, at.labels.clamp(min=0))
+        rpn_cls_loss = (torch.where(at.labels >= 0, ce, 0.0).sum(1) / denom).mean()
+        l1 = smooth_l1(deltas - at.bbox_targets, cfg.loss.rpn_smooth_l1_sigma).sum(-1)
+        rpn_bbox_loss = (torch.where(at.labels == 1, l1, 0.0).sum(1) / denom).mean()
+
+        # ---- proposals (no gradient through their coordinates) + sampling
+        if proposals is None:
+            props = [proposal_layer(rpnout.fg_probs[i].detach(), rpnout.deltas[i].detach(),
+                                    im_info[i, 0], im_info[i, 1], im_info[i, 2],
+                                    train=True, anchor_cfg=cfg.anchors, cfg=cfg.proposals)
+                     for i in range(b)]
+            proposals = (torch.stack([p.rois for p in props]),
+                         torch.stack([p.valid for p in props]))
+        pt = proposal_targets(proposals[0], proposals[1], gt_boxes, gt_labels, gt_valid,
+                              uniforms["pt_fg"], uniforms["pt_bg"], cfg.proposal_targets)
+
+        # ---- head losses
+        cls_score, bbox_pred = self.roi_forward(feat, pt.rois, generator)
+        s = pt.labels.shape[1]
+        cls_loss = masked_mean(softmax_ce(cls_score, pt.labels), pt.valid)
+        pred = bbox_pred.reshape(b, s, cfg.num_classes, 4)
+        pred = torch.gather(pred, 2, pt.labels.long()[..., None, None].expand(b, s, 1, 4))
+        head_l1 = smooth_l1(pred[:, :, 0] - pt.bbox_targets,
+                            cfg.loss.head_smooth_l1_sigma).sum(-1)
+        # Caffe's SmoothL1Loss normalises by the RoI blob size (B*S)
+        bbox_loss = masked_mean(head_l1, pt.is_fg, denom=b * s)
+
+        return {
+            "loss": rpn_cls_loss + rpn_bbox_loss + cls_loss + bbox_loss,
+            "rpn_cls_loss": rpn_cls_loss,
+            "rpn_bbox_loss": rpn_bbox_loss,
+            "cls_loss": cls_loss,
+            "bbox_loss": bbox_loss,
+            "num_fg_anchors": at.num_fg.float().mean(),
+            "num_fg_rois": pt.num_fg.float().mean(),
+        }
+
     forward = detect
 
 
@@ -137,8 +236,8 @@ def postprocess(raw: RawDetections, im_info: torch.Tensor, cfg: FasterRCNNConfig
         score_thresh = t.score_thresh_eval
     dev = raw.rois.device
     k = cfg.num_classes
-    stds = _device_constant(cfg.proposal_targets.bbox_normalize_stds * k, dev)
-    means = _device_constant(cfg.proposal_targets.bbox_normalize_means * k, dev)
+    stds = device_constant(tuple(cfg.proposal_targets.bbox_normalize_stds) * k, dev)
+    means = device_constant(tuple(cfg.proposal_targets.bbox_normalize_means) * k, dev)
     outs = []
     for i in range(raw.rois.shape[0]):
         info = im_info[i]
@@ -152,15 +251,10 @@ def postprocess(raw: RawDetections, im_info: torch.Tensor, cfg: FasterRCNNConfig
     return Detections(*(torch.stack(x) for x in zip(*outs)))
 
 
-@lru_cache(maxsize=16)
-def _device_constant(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
-    """A float32 constant on ``device``, made once and shared read-only: a
-    copy from pageable host memory synchronises the stream."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
-
-
 def make_model(cfg: FasterRCNNConfig = FasterRCNNConfig(),
-               dtype: torch.dtype = torch.float32, device=None) -> FasterRCNN:
+               dtype: torch.dtype = torch.float32, device="cuda") -> FasterRCNN:
+    """The model with float32 parameters on ``device``: the card unless the
+    caller asks for the CPU.  Without a card, the default raises."""
     return FasterRCNN(cfg, dtype, device)
 
 

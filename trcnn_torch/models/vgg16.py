@@ -7,6 +7,11 @@ output are NHWC.  conv1_1 + conv1_2 + pool1 run through the fused stem
 TPU); the other convolutions are ``F.conv2d`` on a channels-last view, so
 the NHWC output needs no copy.
 
+conv1_1-conv2_2 are frozen (the reference recipe): they run without
+autograd, the counterpart of the JAX package's ``stop_gradient`` after
+conv2_2's ReLU (``vgg16.py:122-123``), so no gradient reaches them and none
+of their backward is computed.  K3 is forward only, as the JAX stem is.
+
 Parameters stay float32 unless ``cast_params_for_inference`` narrowed the
 weights; every layer casts its weight and bias to the compute dtype at use,
 and adds the bias after rounding the convolution to that dtype, as flax's
@@ -32,6 +37,9 @@ VGG_CFG: Tuple[Tuple[str, int, int], ...] = (
     ("conv5", 3, 512),
 )
 
+# parameters frozen in detection training (trcnn/models/vgg16.py:47)
+FROZEN_PREFIXES: Tuple[str, ...] = ("conv1_1", "conv1_2", "conv2_1", "conv2_2")
+
 
 def conv_nchw(x: torch.Tensor, conv: nn.Conv2d, relu: bool = True) -> torch.Tensor:
     """``conv`` in x.dtype with flax's rounding order: convolution, then bias,
@@ -55,12 +63,13 @@ class VGG16(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC, H and W multiples of 16 -> (B, H/16, W/16, 512)."""
         c11, c12 = self.conv1_1, self.conv1_2
-        x = stem_block1(x.to(self.dtype).contiguous(), c11.weight, c11.bias,
-                        c12.weight, c12.bias)
-        x = x.permute(0, 3, 1, 2)                 # channels-last NCHW view
-        for bi, (name, n_convs, _) in enumerate(VGG_CFG[1:], start=1):
+        with torch.no_grad():                     # the frozen stem
+            x = stem_block1(x.to(self.dtype).contiguous(), c11.weight, c11.bias,
+                            c12.weight, c12.bias)
+            x = x.permute(0, 3, 1, 2)             # channels-last NCHW view
+            x = conv_nchw(conv_nchw(x, self.conv2_1), self.conv2_2)
+        for name, n_convs, _ in VGG_CFG[2:]:
+            x = F.max_pool2d(x, 2, 2)
             for ci in range(n_convs):
                 x = conv_nchw(x, getattr(self, f"{name}_{ci + 1}"))
-            if bi < len(VGG_CFG) - 1:
-                x = F.max_pool2d(x, 2, 2)
         return x.permute(0, 2, 3, 1).contiguous()

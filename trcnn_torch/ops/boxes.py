@@ -1,4 +1,4 @@
-"""Box transforms, clipping and the IoU predicate (port of
+"""Box encode and decode, clipping, IoU and the IoU predicate (port of
 ``trcnn/ops/boxes.py``).
 
 Every function keeps the "+1" pixel convention (width = x2 - x1 + 1) and
@@ -11,11 +11,20 @@ step for step.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
+from typing import Tuple
 
 import torch
 
 # Clamp on (dw, dh) before exp() in decode (trcnn/ops/boxes.py:23).
 DELTA_CLIP = math.log(1000.0 / 16.0)
+
+
+@lru_cache(maxsize=16)
+def device_constant(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """A float32 constant on ``device``, made once and shared read-only: a
+    copy from pageable host memory synchronises the stream."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -24,14 +33,39 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
     return w * h
 
 
+def _ctr_form(boxes: torch.Tensor):
+    w = boxes[..., 2] - boxes[..., 0] + 1.0
+    h = boxes[..., 3] - boxes[..., 1] + 1.0
+    return w, h, boxes[..., 0] + 0.5 * (w - 1.0), boxes[..., 1] + 0.5 * (h - 1.0)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Encode gt boxes relative to example boxes: (dx, dy, dw, dh) with
+    dx = (gt_cx - ex_cx) / ex_w and dw = log(gt_w / ex_w)."""
+    ex_w, ex_h, ex_cx, ex_cy = _ctr_form(ex_rois)
+    gt_w, gt_h, gt_cx, gt_cy = _ctr_form(gt_rois)
+    return torch.stack([(gt_cx - ex_cx) / ex_w, (gt_cy - ex_cy) / ex_h,
+                        torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)], dim=-1)
+
+
+def box_iou(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU (..., N, K).  The quotient is IEEE in both frameworks,
+    so the matrix is bit-equal to the JAX one; argmax ties depend on it."""
+    area_n = box_area(boxes)[..., :, None]
+    area_k = box_area(query)[..., None, :]
+    lt = torch.maximum(boxes[..., :, None, :2], query[..., None, :, :2])
+    rb = torch.minimum(boxes[..., :, None, 2:], query[..., None, :, 2:])
+    wh = torch.clamp(rb - lt + 1.0, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area_n + area_k - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor,
                        delta_clip: float | None = DELTA_CLIP) -> torch.Tensor:
     """Decode regression deltas on top of boxes.  ``deltas`` may carry 4*K
     channels (class-specific regression); boxes broadcast over the K groups."""
-    w = boxes[..., 2] - boxes[..., 0] + 1.0
-    h = boxes[..., 3] - boxes[..., 1] + 1.0
-    cx = boxes[..., 0] + 0.5 * (w - 1.0)
-    cy = boxes[..., 1] + 0.5 * (h - 1.0)
+    w, h, cx, cy = _ctr_form(boxes)
     d = deltas.reshape(deltas.shape[:-1] + (-1, 4))
     dx, dy, dw, dh = d.unbind(-1)
     if delta_clip is not None:

@@ -1,5 +1,5 @@
-"""RoI max pooling, Caffe/Chainer ``roi_pooling_2d`` forward (port of
-``trcnn/ops/roi_pool.py``).
+"""RoI max pooling, Caffe/Chainer ``roi_pooling_2d``, forward and backward
+(port of ``trcnn/ops/roi_pool.py``).
 
 Bin bounds:
   roi_start = round(coord * spatial_scale)        (half away from zero)
@@ -9,12 +9,22 @@ Bin bounds:
   empty bins give 0.
 The IEEE quotient decides ``ceil`` at exact multiples (roi_size=57, out=7:
 fl(57/7)*7 = 57.000004 -> 58), so the plain version reads it from the same
-host-computed float32 table as the JAX code, and kernel K2
-(``csrc/roi_pool.cu``) divides with ``__fdiv_rn``.
+host-computed float32 table as the JAX code, and kernels K2 and K4 divide
+with ``__fdiv_rn`` (``csrc/roi_bins.cuh``, shared by both).
 
-``roi_max_pool`` launches K2 on CUDA tensors and runs
-:func:`roi_max_pool_plain` on CPU tensors.  A max is a selection, so the two
-are bit-equal.
+Backward: each non-empty bin routes its whole gradient to ONE argmax cell
+per channel, the one with the smallest column-major key ``x*H + y`` among
+equal maxima, accumulated in float32 (the JAX package's single-winner
+contract).  Autograd through a max would split the gradient evenly among
+tied cells, and ReLU zeros tie all the time, so :func:`roi_max_pool` is a
+``torch.autograd.Function`` whose forward runs without autograd and whose
+backward is written out: :func:`roi_pool_backward_plain`, or kernel K4
+(``csrc/roi_pool_bwd.cu``) on the card.
+
+``roi_max_pool`` launches K2 / K4 on CUDA tensors and runs the plain
+versions on CPU tensors.  A max is a selection, so K2 is bit-equal to its
+plain version; K4 adds in float32 atomics, bit-equal on integer-valued
+gradients and within rounding otherwise.
 """
 
 from __future__ import annotations
@@ -69,17 +79,17 @@ def roi_bin_bounds(rois: torch.Tensor, spatial_scale: float, out_size: int,
     return hstart, hend, wstart, wend
 
 
-def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
-                       spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
-    """feat (B, H, W, C), rois (B, R, 4) image coords -> (B, R, P, P, C).
-
-    Each bin gathers a window as large as the largest bin, masks cells past
-    its own end and reduces with max; one bin at a time keeps the gathered
-    block at (B, R, window, C).  The JAX code sizes the window statically
-    (``max_bin_extent``), which covers RoIs up to the map's size, as
-    proposals clipped to the image are; sized from the bounds, the window
-    also covers larger RoIs exactly, as the kernel and the numpy oracle do.
-    """
+def _bin_windows(feat: torch.Tensor, rois: torch.Tensor, out_size: int,
+                 spatial_scale: float):
+    """Yield (ph, pw, vals, ok, yy, xx) for every bin: its cells gathered
+    into a window as large as the largest bin, vals (B, R, M, C) in feat's
+    dtype with -inf past the bin's end, ok (B, R, M) the in-bin mask, yy
+    and xx (B, R, M) the cells' rows and columns.  One bin at a time keeps
+    the gathered block at (B, R, M, C).  The JAX code sizes the window
+    statically (``max_bin_extent``), which covers RoIs up to the map's
+    size, as proposals clipped to the image are; sized from the bounds, the
+    window also covers larger RoIs exactly, as the kernels and the numpy
+    oracles do."""
     b, h, w, c = feat.shape
     r = rois.shape[1]
     hstart, hend, wstart, wend = roi_bin_bounds(rois, spatial_scale, out_size, h, w)
@@ -89,8 +99,6 @@ def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7
     bidx = torch.arange(b, device=feat.device)[:, None, None]
     dh = torch.arange(mbh, dtype=torch.int32, device=feat.device)
     dw = torch.arange(mbw, dtype=torch.int32, device=feat.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=feat.dtype, device=feat.device)
-    out = feat.new_empty((b, r, out_size, out_size, c))
     for ph in range(out_size):
         h_idx = hstart[..., ph, None] + dh                    # (B, R, MBH)
         h_ok = h_idx < hend[..., ph, None]
@@ -99,14 +107,47 @@ def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7
             w_idx = wstart[..., pw, None] + dw                # (B, R, MBW)
             w_ok = w_idx < wend[..., pw, None]
             w_idx = w_idx.clamp(0, w - 1)
-            lin = (h_idx[..., :, None] * w + w_idx[..., None, :]).reshape(b, r, -1)
+            yy = h_idx[..., :, None].expand(b, r, mbh, mbw).reshape(b, r, -1)
+            xx = w_idx[..., None, :].expand(b, r, mbh, mbw).reshape(b, r, -1)
             ok = (h_ok[..., :, None] & w_ok[..., None, :]).reshape(b, r, -1)
-            vals = flat[bidx, lin.long()]                     # (B, R, M, C)
-            vals = torch.where(ok[..., None], vals, neg_inf)
-            binmax = vals.amax(dim=2)
-            empty = ~ok.any(dim=2)
-            out[:, :, ph, pw] = torch.where(empty[..., None], 0.0, binmax)
+            vals = flat[bidx, (yy * w + xx).long()]           # (B, R, M, C)
+            yield ph, pw, torch.where(ok[..., None], vals, float("-inf")), ok, yy, xx
+
+
+def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
+                       spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """feat (B, H, W, C), rois (B, R, 4) image coords -> (B, R, P, P, C):
+    each bin's window reduced with max, empty bins 0."""
+    b, _, _, c = feat.shape
+    out = feat.new_empty((b, rois.shape[1], out_size, out_size, c))
+    for ph, pw, vals, ok, _, _ in _bin_windows(feat, rois, out_size, spatial_scale):
+        out[:, :, ph, pw] = torch.where(~ok.any(dim=2)[..., None], 0.0, vals.amax(dim=2))
     return out
+
+
+def roi_pool_backward_plain(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tensor,
+                            out_size: int = 7, spatial_scale: float = 1.0 / 16.0
+                            ) -> torch.Tensor:
+    """feat (B, H, W, C), rois (B, R, 4), g (B, R, P, P, C) -> dfeat
+    (B, H, W, C) in feat's dtype.
+
+    Per bin: the max over the window's cells, and among the cells equal to
+    it the smallest column-major key ``x*H + y``; a non-empty bin adds its
+    g (as float32) to that cell of a float32 dfeat.
+    """
+    b, h, w, c = feat.shape
+    dflat = torch.zeros((b, h * w, c), dtype=torch.float32, device=feat.device)
+    big = h * w + 1
+    for ph, pw, vals, ok, yy, xx in _bin_windows(feat, rois, out_size, spatial_scale):
+        vals = vals.float()
+        hit = ok[..., None] & (vals == vals.amax(dim=2, keepdim=True))
+        key = (xx * h + yy)[..., None].long()                 # column-major
+        kmin = torch.where(hit, key, big).amin(dim=2)         # (B, R, C)
+        nonempty = kmin < big
+        cell = torch.where(nonempty, (kmin % h) * w + kmin // h, 0)
+        contrib = torch.where(nonempty, g[:, :, ph, pw].float(), 0.0)
+        dflat.scatter_add_(1, cell, contrib)
+    return dflat.reshape(b, h, w, c).to(feat.dtype)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -115,21 +156,26 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def roi_max_pool_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
-                      spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
-    """Kernel K2: :func:`roi_max_pool_plain` on the card."""
+def _check_inputs(what: str, feat: torch.Tensor, rois: torch.Tensor) -> None:
     dev = feat.device
     if dev.type != "cuda" or rois.device != dev:
-        raise ValueError(f"roi_max_pool_cuda needs CUDA tensors on one device, "
+        raise ValueError(f"{what} needs CUDA tensors on one device, "
                          f"got {dev} and {rois.device}")
     if feat.dim() != 4 or feat.dtype not in _DTYPE_CODE or not feat.is_contiguous():
         raise ValueError(f"feat must be contiguous float32/bfloat16 (B, H, W, C), "
                          f"got {feat.dtype} {tuple(feat.shape)}")
-    b, h, w, c = feat.shape
-    if (rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[0] != b
+    if (rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[0] != feat.shape[0]
             or rois.shape[2] != 4 or not rois.is_contiguous()):
         raise ValueError(f"rois must be contiguous float32 (B, R, 4), got "
                          f"{rois.dtype} {tuple(rois.shape)}")
+
+
+def roi_max_pool_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
+                      spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """Kernel K2: :func:`roi_max_pool_plain` on the card."""
+    _check_inputs("roi_max_pool_cuda", feat, rois)
+    dev = feat.device
+    b, h, w, c = feat.shape
     r = rois.shape[1]
     out = torch.empty((b, r, out_size, out_size, c), dtype=feat.dtype, device=dev)
     if out.numel() == 0:
@@ -143,12 +189,59 @@ def roi_max_pool_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
     return out
 
 
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tensor,
+                           out_size: int = 7, spatial_scale: float = 1.0 / 16.0
+                           ) -> torch.Tensor:
+    """Kernel K4: :func:`roi_pool_backward_plain` on the card."""
+    _check_inputs("roi_pool_backward_cuda", feat, rois)
+    b, h, w, c = feat.shape
+    r = rois.shape[1]
+    if (g.dtype != feat.dtype or g.device != feat.device or not g.is_contiguous()
+            or tuple(g.shape) != (b, r, out_size, out_size, c)):
+        raise ValueError(f"g must be a contiguous {feat.dtype} {(b, r, out_size, out_size, c)} "
+                         f"tensor on {feat.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=feat.device)
+    if g.numel() == 0 or dfeat.numel() == 0:
+        return dfeat.to(feat.dtype)
+    fn = _build.function("roi_pool_bwd", "trcnn_roi_pool_bwd", _BWD_ARGTYPES)
+    err = fn(_build.ptr(feat), _build.ptr(rois), _build.ptr(g), b, r, h, w, c, out_size,
+             spatial_scale, _DTYPE_CODE[feat.dtype], _build.ptr(dfeat),
+             _build.stream_of(feat.device))
+    _build.check(err, "trcnn_roi_pool_bwd")
+    _build.count_launch("roi_pool_bwd")
+    return dfeat.to(feat.dtype)
+
+
+class _RoIMaxPool(torch.autograd.Function):
+    """K2 / plain forward, K4 / plain single-winner backward; no gradient
+    to the RoIs."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, out_size, spatial_scale):
+        ctx.save_for_backward(feat, rois)
+        ctx.pool = (out_size, spatial_scale)
+        if feat.device.type == "cuda":
+            return roi_max_pool_cuda(feat, rois, out_size, spatial_scale)
+        return roi_max_pool_plain(feat, rois, out_size, spatial_scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        feat, rois = ctx.saved_tensors
+        bwd = roi_pool_backward_cuda if feat.device.type == "cuda" else roi_pool_backward_plain
+        return bwd(feat, rois, g.contiguous(), *ctx.pool), None, None, None
+
+
 def roi_max_pool(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
                  spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
     """RoI max pool over a batch: feat (B, H, W, C) NHWC, rois (B, R, 4)
-    -> (B, R, out, out, C).  Kernel K2 for CUDA tensors, plain for CPU."""
-    if feat.device.type == "cuda":
-        return roi_max_pool_cuda(feat, rois, out_size, spatial_scale)
-    if feat.device.type == "cpu":
-        return roi_max_pool_plain(feat, rois, out_size, spatial_scale)
-    raise ValueError(f"no RoI pool for device {feat.device}")
+    -> (B, R, out, out, C), differentiable in feat.  Kernels K2 (forward)
+    and K4 (backward) for CUDA tensors, the plain versions for CPU."""
+    if feat.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no RoI pool for device {feat.device}")
+    return _RoIMaxPool.apply(feat, rois, out_size, spatial_scale)
