@@ -390,15 +390,20 @@ def phase_kernels(dev):
           f"bound {b2['bound_ms']:.4f} ms ({b2['bound_by']})")
     rec["roi_pool"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b2)
 
-    # K4: the training shape, B=8 x 128 RoIs on the VGG map, f32 and bf16:
-    # integer-valued g (bit-equal), on a tie-heavy map too, and real-valued g
-    err = 0.0
+    # K2 and K4 at the training shape, B=8 x 128 RoIs on the VGG map, f32 and
+    # bf16; K4 with integer-valued g (bit-equal), on a tie-heavy map too, and
+    # real-valued g
     feat, rois = roi_case(8, 128, 30)
     rng = np.random.default_rng(31)
     g_int = rng.integers(-4, 5, (8, 128, 7, 7, 512)).astype(np.float32)
     g_real = rng.standard_normal((8, 128, 7, 7, 512)).astype(np.float32)
     ties = rng.integers(0, 3, feat.shape).astype(np.float32)
     rois_t = torch.from_numpy(rois).to(dev)
+    for what, f in (("", feat), (", tie-heavy map", ties)):
+        for dt in (torch.bfloat16, torch.float32):
+            rec["roi_pool"]["max_abs_err"] = max(rec["roi_pool"]["max_abs_err"], check_roi_equal(
+                torch.from_numpy(f).to(dev, dt), rois_t, f"B=8x128 {dt}{what} (train)"))
+    err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for what, f, g, exact in (("integer g", feat, g_int, True),
                                   ("integer g, tie-heavy map", ties, g_int, True),
@@ -415,15 +420,24 @@ def phase_kernels(dev):
           f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
     rec["roi_pool_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b4)
 
-    # K3: the full canvas, integer-valued (exact) and real-valued, f32 and bf16
+    # K3: the full canvas, integer-valued (exact) and real-valued: one image
+    # in f32 and bf16 (a request), a batch of 8 in bf16 (detect b=8, train)
     err = 0.0
     for integer in (True, False):
+        args8 = [torch.from_numpy(a).to(dev, torch.bfloat16)
+                 for a in stem_case((8, 608, 1024, 3), 21, integer=integer)]
+        err = max(err, check_stem(args8, f"(8,608,1024,3) {torch.bfloat16} "
+                                         f"{'integer' if integer else 'real'}", exact=integer))
         case = stem_case((1, 608, 1024, 3), 20, integer=integer)
         for dt in (torch.float32, torch.bfloat16):
             args = [torch.from_numpy(a).to(dev, dt) for a in case]
             err = max(err, check_stem(args, f"(1,608,1024,3) {dt} "
                                             f"{'integer' if integer else 'real'}",
                                       exact=integer))
+    # the batch's shape, timed apart (the record keeps the request's shape)
+    ms = cuda_time_ms(lambda: stem.stem_block1_cuda(*args8), iters=5)
+    phase(f"  K3 time at (8,608,1024,3) bf16 (detect b=8, train): kernel {ms:.4f} ms")
+    del args8
     ms = cuda_time_ms(lambda: stem.stem_block1_cuda(*args))
     plain_ms = cuda_time_ms(lambda: stem.stem_block1_plain(*args))
     hw = 608 * 1024
@@ -483,17 +497,13 @@ def train_cfg():
 
 
 def train_proposals(model, images, im_info):
-    """The proposals ``losses`` samples from, computed apart."""
+    """The proposals ``losses`` samples from, through the model's own
+    ``propose``."""
     import torch
-
-    from trcnn_torch.ops.proposal import proposal_layer
 
     with torch.no_grad():
         rpn = model.rpn(model.extractor(model._prepare(images, im_info)))
-        props = [proposal_layer(rpn.fg_probs[i], rpn.deltas[i], *im_info[i], train=True,
-                                anchor_cfg=model.cfg.anchors, cfg=model.cfg.proposals)
-                 for i in range(images.shape[0])]
-    return torch.stack([p.rois for p in props]), torch.stack([p.valid for p in props])
+        return model.propose(rpn, im_info, train=True)
 
 
 def phase_train_parity(dev):
@@ -573,11 +583,13 @@ KERNEL_GROUPS = (("trcnn_nms", "K1 nms"), ("roi_pool_fwd", "K2 roi_pool"),
                  ("cutlass", "matmul/conv"), ("nvjet", "matmul/conv"), ("cudnn", "matmul/conv"))
 
 
-def profile_window(run, n, what):
+def profile_window(run, n, what, stages=()):
     """``run`` n times under torch.profiler: device kernel time per call by
     group, the largest other kernels, and the device's busy share (the union
     of kernel intervals over the span from the first kernel's start to the
-    last one's end).  Prints "no device time" if the profiler saw none."""
+    last one's end).  ``stages`` names profiler spans that ``run`` opens;
+    each one's kernel time is printed (:func:`phase_split`).  Prints "no
+    device time" if the profiler saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -586,7 +598,10 @@ def profile_window(run, n, what):
         for _ in range(n):
             run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # without the spans' device-side copies, which are no kernels
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in stages]
     if not kernels:
         phase(f"  profile {what}: the profiler saw no device time")
         return
@@ -612,6 +627,37 @@ def profile_window(run, n, what):
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     phase("    largest other kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    if stages:
+        phase_split(events, stages, n, sum(groups.values()))
+
+
+def phase_split(events, stages, n, total_ms):
+    """Each stage's device kernel time per call, beside the span's host
+    time.  A kernel counts for a stage when the host op that launched it
+    starts inside the stage's span, on any thread (autograd runs the
+    backward ops on its own device thread while the caller waits inside
+    the span).  The profiler links no host op to a kernel launched through
+    ctypes, so the port's own kernels (K1-K4, in the breakdown above) stay
+    out of the stages, in the remainder."""
+    import torch
+
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [e for e in cpu if e.name in stages]
+    kernel_ms = {s: 0.0 for s in stages}
+    host_ms = {s: 0.0 for s in stages}
+    for sp in spans:
+        host_ms[sp.name] += (sp.time_range.end - sp.time_range.start) / 1e3 / n
+    for op in cpu:
+        if op.name in stages or not op.kernels:
+            continue
+        hit = next((sp for sp in spans
+                    if sp.time_range.start <= op.time_range.start <= sp.time_range.end), None)
+        if hit is not None:
+            kernel_ms[hit.name] += sum(k.duration for k in op.kernels) / 1e3 / n
+    phase("    stage split per call, kernels of torch ops (kernel ms, host ms of the span): "
+          + ", ".join(f"{s.rsplit('.', 1)[-1]} {kernel_ms[s]:.3f}, {host_ms[s]:.3f}"
+                      for s in stages)
+          + f"; linked to no op in a span {total_ms - sum(kernel_ms.values()):.3f}")
 
 
 def check_dets(dets, b, d=100):
@@ -703,14 +749,14 @@ def check_step(m, step):
 def phase_train(dev):
     """The full-width training step through train_entry: one cold step, 6
     timed ones; the parameters move after the first, the frozen ones never;
-    then one step split into forward / backward / optimizer."""
+    then 3 profiled steps, split into the step's own forward / backward /
+    optimizer spans."""
     import torch
 
     from trcnn_torch import _build
     from trcnn_torch.entry import train_entry
-    from trcnn_torch.train import step_generator
-    from trcnn_torch.train.optim import global_norm, is_frozen
-    from trcnn_torch.train.step import BATCH_KEYS
+    from trcnn_torch.train.optim import is_frozen
+    from trcnn_torch.train.step import STAGES
 
     t0 = time.perf_counter()
     step_fn, (state, batch) = train_entry(dev)
@@ -745,25 +791,7 @@ def phase_train(dev):
           f"median {warm:.2f} ms, {batch['images'].shape[0] / warm * 1e3:.2f} img/s")
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # one more step split into stages on the device timeline (CUDA events)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    model.train()
-    gen = step_generator(0, state.step, dev)
-    ev[0].record()
-    out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen)
-    ev[1].record()
-    model.zero_grad(set_to_none=True)
-    out["loss"].backward()
-    ev[2].record()
-    state.optimizer.step(state.step, global_norm(p.grad for p in model.parameters()
-                                                 if p.grad is not None))
-    ev[3].record()
-    state.step += 1
-    torch.cuda.synchronize()
-    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    phase(f"  one step split (CUDA events): forward {split[0]:.2f} ms, backward "
-          f"{split[1]:.2f} ms, optimizer {split[2]:.2f} ms")
-    profile_window(lambda: step_fn(state, batch), 3, "train step b=8")
+    profile_window(lambda: step_fn(state, batch), 3, "train step b=8", STAGES)
     del model, state, before
     torch.cuda.empty_cache()
     return launches

@@ -80,12 +80,15 @@ def test_tied_bin_has_one_winner(second):
     """The fixtures of tests/test_roi_pool_pallas.py: bin (0, 0) spans rows
     0..5 and columns 0..9; two cells share its max.  Column tie: the first
     column wins; row tie within a column: the first row.  Autograd through
-    roi_max_pool gives the same single winner, not an even split."""
-    feat = np.zeros((1, 38, 64, 8), np.float32)
+    roi_max_pool gives the same single winner, not an even split.  (At
+    ``_case``'s shapes, so that JAX compiles its VJP once for the module:
+    every RoI is the same box, and only the first one's bin (0, 0) of
+    image 0 has a gradient.)"""
+    feat = np.zeros((2, 38, 64, 16), np.float32)
     feat[0, 2, 2] = 5.0
     feat[0, second[0], second[1]] = 5.0
-    rois = np.asarray([[[0.0, 0.0, 1015.0, 599.0]]], np.float32)
-    g = np.zeros((1, 1, 7, 7, 8), np.float32)
+    rois = np.broadcast_to(np.float32([0.0, 0.0, 1015.0, 599.0]), (2, 24, 4)).copy()
+    g = np.zeros((2, 24, 7, 7, 16), np.float32)
     g[0, 0, 0, 0] = 2.0
     want = _jax_vjp(feat, rois, g, np.float32)
     got = roi_pool.roi_pool_backward_plain(T(feat), T(rois), T(g)).numpy()
@@ -115,8 +118,8 @@ def test_autograd_equals_explicit_backward():
 
 
 def test_backward_real_valued_gradient_within_tolerance():
-    feat, rois, _ = _case(5, c=32)
-    g = np.random.default_rng(6).standard_normal((2, 24, 7, 7, 32)).astype(np.float32)
+    feat, rois, _ = _case(5)
+    g = np.random.default_rng(6).standard_normal((2, 24, 7, 7, 16)).astype(np.float32)
     want = _jax_vjp(feat, rois, g, np.float32)
     got = roi_pool.roi_pool_backward_plain(T(feat), T(rois), T(g)).numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

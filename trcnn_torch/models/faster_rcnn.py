@@ -124,18 +124,22 @@ class FasterRCNN(nn.Module):
         """images (B, H, W, 3): mean-subtracted BGR float or raw uint8 canvas;
         im_info (B, 3) float32 rows (scaled_h, scaled_w, im_scale)."""
         feat = self.extractor(self._prepare(images, im_info))
-        rpnout = self.rpn(feat)
-        props = [proposal_layer(rpnout.fg_probs[i], rpnout.deltas[i],
-                                im_info[i, 0], im_info[i, 1], im_info[i, 2],
-                                train=False, anchor_cfg=self.cfg.anchors,
-                                cfg=self.cfg.proposals)
-                 for i in range(images.shape[0])]
-        rois = torch.stack([p.rois for p in props])
+        rois, roi_valid = self.propose(self.rpn(feat), im_info, train=False)
         cls_score, bbox_pred = self.roi_forward(feat, rois)
-        return RawDetections(rois=rois,
-                             roi_valid=torch.stack([p.valid for p in props]),
+        return RawDetections(rois=rois, roi_valid=roi_valid,
                              cls_prob=torch.softmax(cls_score, dim=-1),
                              bbox_pred=bbox_pred)
+
+    def propose(self, rpnout, im_info: torch.Tensor, train: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The proposal layer per image on the detached RPN outputs (no
+        gradient through the proposals' coordinates) -> rois (B, P, 4),
+        valid (B, P); ``train`` picks the training capacities."""
+        props = [proposal_layer(rpnout.fg_probs[i].detach(), rpnout.deltas[i].detach(),
+                                im_info[i, 0], im_info[i, 1], im_info[i, 2], train=train,
+                                anchor_cfg=self.cfg.anchors, cfg=self.cfg.proposals)
+                 for i in range(im_info.shape[0])]
+        return torch.stack([p.rois for p in props]), torch.stack([p.valid for p in props])
 
     def draw_uniforms(self, b: int, feat_hw: Tuple[int, int], num_gt: int,
                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -194,12 +198,7 @@ class FasterRCNN(nn.Module):
 
         # ---- proposals (no gradient through their coordinates) + sampling
         if proposals is None:
-            props = [proposal_layer(rpnout.fg_probs[i].detach(), rpnout.deltas[i].detach(),
-                                    im_info[i, 0], im_info[i, 1], im_info[i, 2],
-                                    train=True, anchor_cfg=cfg.anchors, cfg=cfg.proposals)
-                     for i in range(b)]
-            proposals = (torch.stack([p.rois for p in props]),
-                         torch.stack([p.valid for p in props]))
+            proposals = self.propose(rpnout, im_info, train=True)
         pt = proposal_targets(proposals[0], proposals[1], gt_boxes, gt_labels, gt_valid,
                               uniforms["pt_fg"], uniforms["pt_bg"], cfg.proposal_targets)
 

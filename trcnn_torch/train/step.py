@@ -6,7 +6,9 @@ model lives on; nothing waits on the device.  The step's generator, which
 draws the sampling uniforms and the dropout masks, is seeded from
 (seed, step): a run resumed from a checkpoint draws what an uninterrupted
 one would, as the JAX step's ``fold_in(rng, state.step)`` does.  The
-generators' numbers are not JAX's; the tests hand in JAX's draws.
+generators' numbers are not JAX's; the tests hand in JAX's draws.  The
+three stages run under ``torch.profiler`` spans named in ``STAGES``, which
+record nothing when no profiler runs.
 
 The mesh and data parallelism wait for a later slice.
 """
@@ -17,11 +19,14 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from trcnn_torch.models.faster_rcnn import FasterRCNN
 from trcnn_torch.train.optim import CaffeSGD, global_norm
 
 BATCH_KEYS = ("images", "im_info", "gt_boxes", "gt_labels", "gt_valid")
+# the step's profiler spans, in order
+STAGES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 
 @dataclasses.dataclass
@@ -57,11 +62,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
     model = state.model
     model.train()
     gen = step_generator(seed, state.step, batch["images"].device)
-    out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen, uniforms=uniforms)
-    model.zero_grad(set_to_none=True)
-    out["loss"].backward()
-    norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
-    state.optimizer.step(state.step, norm)
+    with record_function(STAGES[0]):
+        out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen, uniforms=uniforms)
+    with record_function(STAGES[1]):
+        model.zero_grad(set_to_none=True)
+        out["loss"].backward()
+    with record_function(STAGES[2]):
+        norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+        state.optimizer.step(state.step, norm)
     state.step += 1
     metrics = {k: v.detach() for k, v in out.items()}
     metrics["grad_norm"] = norm
