@@ -8,9 +8,10 @@ Phases, one line each, any failure raises and exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA kernels K1-K4 from ``trcnn_torch/csrc``, all at once;
 3. each kernel against its plain PyTorch version on the card at the main
-   paths' shapes, with both times (CUDA events, median after warm-up) and
-   the least time the card could take (``bound_ms``, from this run's
-   inputs);
+   paths' shapes (K1 batched over 8 images, an empty and a short image
+   among them), with both times (CUDA events, median after warm-up), the
+   least time the card could take (``bound_ms``, from this run's inputs)
+   and, for K3, the cuDNN composite's time beside the kernel's;
 4. a small config through the port on the card and on the CPU (plain
    versions) with the same weights: the detections must agree, and one
    training forward with the same sampling draws must make the same
@@ -19,9 +20,9 @@ Phases, one line each, any failure raises and exits non-zero:
    float32 master weights, uint8 608x1024 canvases, each with the launch
    counters set to 0 before it and read after it:
    - detect, through ``trcnn_torch.entry.entry``: three one-image requests
-     and one batch of 8; K1-K3 must move;
+     and one batch of 8; K1-K3 must move, K1 exactly twice per call;
    - train, through ``trcnn_torch.entry.train_entry``: one cold step and 6
-     timed steps at batch 8; K1-K4 must move;
+     timed steps at batch 8; K1-K4 must move, K1 exactly once per step;
 6. one float32 request and one float32 train step whose kernel inputs are
    captured and replayed through the plain versions.
 
@@ -139,19 +140,34 @@ def nms_case(n: int, seed: int, im=(600.0, 1000.0)):
     return boxes, scores, valid, None
 
 
+def nms_batch(make, b: int, seed: int, few: int):
+    """A batch of ``b`` images from ``make(seed)`` (boxes, scores, valid,
+    groups): image 1 has no valid box, image 2 only its first ``few`` boxes
+    valid, so that it keeps fewer than max_out."""
+    cases = [make(seed + i) for i in range(b)]
+    boxes, scores, valid = (np.stack([c[k] for c in cases]) for k in range(3))
+    groups = None if cases[0][3] is None else np.stack([c[3] for c in cases])
+    valid[1] = False
+    valid[2, few:] = False
+    return boxes, scores, valid, groups
+
+
 def sorted_nms_inputs(boxes, scores, valid, groups, dev):
-    """Score-sort on the device (stable), as nms_padded does."""
+    """Score-sort each image on the device (stable), as nms_padded does."""
     import torch
 
     b = torch.from_numpy(boxes).to(dev)
     sc = torch.where(torch.from_numpy(valid).to(dev), torch.from_numpy(scores).to(dev),
                      torch.tensor(float("-inf"), device=dev))
-    neg, order = torch.sort(-sc, stable=True)
-    g = None if groups is None else torch.from_numpy(groups).to(dev)[order].contiguous()
-    return b[order].contiguous(), (-neg > float("-inf")).contiguous(), g
+    neg, order = torch.sort(-sc, dim=-1, stable=True)
+    g = (None if groups is None
+         else torch.gather(torch.from_numpy(groups).to(dev), -1, order).contiguous())
+    return (torch.gather(b, -2, order[..., None].expand(*order.shape, 4)).contiguous(),
+            (-neg > float("-inf")).contiguous(), g)
 
 
 def check_nms_equal(args, thresh, max_out, what):
+    """One K1 launch for the batch against the plain version per image."""
     from trcnn_torch.ops import nms
 
     kp, kv = nms.greedy_keep_cuda(*args[:2], thresh, max_out, args[2])
@@ -160,8 +176,24 @@ def check_nms_equal(args, thresh, max_out, what):
     mism = int((kp != pp).sum()) + int((kv != pv).sum())
     if mism:
         raise AssertionError(f"K1 keep-set differs from the plain version: {what}")
-    phase(f"  K1 {what}: kept {int(kv.sum())}, keep-set equal")
+    kept = kv.sum(-1).tolist()
+    if kept[1] != 0 or not 0 < kept[2] < max_out:
+        raise AssertionError(f"K1 case lacks its empty or short image: {what}, kept {kept}")
+    phase(f"  K1 {what}: kept {kept} per image, keep-sets and counts equal")
     return float(mism)
+
+
+def nms_bound(args, t, max_out):
+    """The greedy pass needs each kept box's predicate against every later
+    box of its image (about 12 float32 operations each); bytes: boxes,
+    flags and groups in, positions and counts out."""
+    from trcnn_torch.ops import nms
+
+    pos, kv = nms.greedy_keep_cuda(args[0], args[1], t, max_out, args[2])
+    n = args[0].shape[-2]
+    pairs = int(((n - 1 - pos.long()) * kv).sum())
+    return pairs, bound(nbytes(args[0], args[1], args[2], pos) + 4 * pos.shape[0],
+                        12.0 * pairs, F32_OPS)
 
 
 # ---------------------------------------------------------------- K2 cases
@@ -344,33 +376,39 @@ def phase_kernels(dev):
     rec = {}
     phase("kernels vs plain versions:")
 
-    # K1: proposals 6000 -> 300 @0.7 (presorted), epilogue 20 x 300 -> 100
-    # @0.3 (grouped, sorted here), train 12000 -> 2000 @0.7
+    # K1, one launch per batch of 8: proposals 6000 -> 300 @0.7
+    # (presorted), epilogue 20 x 300 -> 100 @0.3 (grouped, sorted here),
+    # train 12000 -> 2000 @0.7; each with an empty and a short image
     err = 0.0
-    cases = [("6000->300 @0.7", nms_case(6000, 1), 0.7, 300),
-             ("grouped 20x300->100 @0.3", epilogue_case(20, 300, 2), 0.3, 100),
-             ("12000->2000 @0.7", nms_case(12000, 3), 0.7, 2000)]
-    timed = []
+    cases = [("(8,6000)->300 @0.7", nms_batch(lambda sd: nms_case(6000, sd), 8, 1, 200),
+              0.7, 300),
+             ("grouped (8,20x300)->100 @0.3",
+              nms_batch(lambda sd: epilogue_case(20, 300, sd), 8, 2, 60), 0.3, 100),
+             ("(8,12000)->2000 @0.7", nms_batch(lambda sd: nms_case(12000, sd), 8, 3, 1500),
+              0.7, 2000)]
+    shapes = []
     for what, case, t, k in cases:
         args = sorted_nms_inputs(*case, dev)
         err = max(err, check_nms_equal(args, t, k, what))
-        timed.append((args, t, k))
-    # the train path's shape, timed apart (the record keeps the detect shape)
-    args, t, k = timed[2]
-    ms = cuda_time_ms(lambda: nms.greedy_keep_cuda(args[0], args[1], t, k, args[2]))
-    phase(f"  K1 time at 12000->2000 (train): kernel {ms:.4f} ms")
-    args, t, k = timed[0]
-    ms = cuda_time_ms(lambda: nms.greedy_keep_cuda(args[0], args[1], t, k, args[2]))
-    plain_ms = cuda_time_ms(lambda: nms.greedy_keep_plain(args[0], args[1], t, k, args[2]))
-    # the greedy pass needs each kept box's predicate against every later box
-    # (about 12 float32 operations each); bytes: boxes and flags in, keep out
-    pos, kv = nms.greedy_keep_cuda(args[0], args[1], t, k, args[2])
-    n = args[0].shape[0]
-    pairs = int((n - 1 - pos[kv].long()).sum())
-    b1 = bound(nbytes(args[0], args[1], args[2], pos, kv), 12.0 * pairs, F32_OPS)
-    phase(f"  K1 time at 6000->300: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}, {pairs} predicates)")
-    rec["nms"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b1)
+        ms = cuda_time_ms(lambda: nms.greedy_keep_cuda(args[0], args[1], t, k, args[2]))
+        plain_ms = cuda_time_ms(lambda: nms.greedy_keep_plain(args[0], args[1], t, k, args[2]),
+                                warmup=1, iters=3)
+        pairs, b1 = nms_bound(args, t, k)
+        phase(f"  K1 time at {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b1['bound_ms']:.4f} ms ({b1['bound_by']}, {pairs} predicates)")
+        shapes.append(dict(shape=what, ms=ms, plain_ms=plain_ms, **b1))
+    # one image of the train shape alone, in the same call: one launch for 8
+    # images must beat 8 launches of one
+    one = [a[0] if a is not None else None for a in args]
+    ms1 = cuda_time_ms(lambda: nms.greedy_keep_cuda(one[0], one[1], t, k, one[2]))
+    phase(f"  K1 time at one image 12000->2000: {ms1:.4f} ms; the batch of 8 takes "
+          f"{shapes[-1]['ms'] / ms1:.2f}x that")
+    shapes.append(dict(shape="(1,12000)->2000 @0.7", ms=ms1))
+    if shapes[2]["ms"] >= 8 * ms1:
+        raise AssertionError("K1's one launch for 8 images is no faster than 8 launches of one")
+    # the record keeps the train shape, the kernel's largest cost per step
+    rec["nms"] = dict(max_abs_err=err, library_ms=None, shapes=shapes,
+                      **{k: shapes[2][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
     # K2: B=1 and B=8 x 300 RoIs on the VGG map (38 x 64 x 512), bf16 and f32
     err = 0.0
@@ -434,17 +472,27 @@ def phase_kernels(dev):
             err = max(err, check_stem(args, f"(1,608,1024,3) {dt} "
                                             f"{'integer' if integer else 'real'}",
                                       exact=integer))
-    # the batch's shape, timed apart (the record keeps the request's shape)
-    ms = cuda_time_ms(lambda: stem.stem_block1_cuda(*args8), iters=5)
-    phase(f"  K3 time at (8,608,1024,3) bf16 (detect b=8, train): kernel {ms:.4f} ms")
+    # kernel and cuDNN composite (the plain version: conv, bias, ReLU, conv,
+    # bias, ReLU, pool) in turns at both shapes; the record keeps the batch's
+    shapes = []
+    for what, a in (("(1,608,1024,3) bf16", args), ("(8,608,1024,3) bf16", args8)):
+        k1 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
+        l1 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
+        l2 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
+        k2 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
+        ms, lib_ms = statistics.median([k1, k2]), statistics.median([l1, l2])
+        hw = a[0].shape[0] * 608 * 1024
+        b3 = bound(nbytes(*a) + hw // 4 * 64 * 2, 2.0 * hw * 64 * (27 + 576), BF16_OPS)
+        phase(f"  K3 time at {what}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), cuDNN "
+              f"composite {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound {b3['bound_ms']:.4f} ms "
+              f"({b3['bound_by']}); kernel {lib_ms / ms:.2f}x the composite's speed, "
+              f"{b3['bound_ms'] / ms * 100:.1f}% of the bound")
+        shapes.append(dict(shape=what, ms=ms, plain_ms=lib_ms, library_ms=lib_ms, **b3))
+        if ms >= lib_ms:
+            raise AssertionError(f"K3 is no faster than the cuDNN composite at {what}")
     del args8
-    ms = cuda_time_ms(lambda: stem.stem_block1_cuda(*args))
-    plain_ms = cuda_time_ms(lambda: stem.stem_block1_plain(*args))
-    hw = 608 * 1024
-    b3 = bound(nbytes(*args) + hw // 4 * 64 * 2, 2.0 * hw * 64 * (27 + 576), BF16_OPS)
-    phase(f"  K3 time at (1,608,1024,3) bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b3['bound_ms']:.4f} ms ({b3['bound_by']})")
-    rec["stem"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b3)
+    rec["stem"] = dict(max_abs_err=err, shapes=shapes, **shapes[1])
+    del rec["stem"]["shape"]
     return rec
 
 
@@ -680,6 +728,21 @@ def require_launches(path, launches):
         raise AssertionError(f"the {path} path never launched {missing}")
 
 
+def require_nms_launches(what, call, want):
+    """K1 launches once per batch: count its launches around one call."""
+    import torch
+
+    from trcnn_torch import _build
+
+    _build.reset_launch_counts()
+    call()
+    torch.cuda.synchronize()
+    got = _build.launch_counts["nms"]
+    if got != want:
+        raise AssertionError(f"{what} launched K1 {got} times, expected {want}")
+    phase(f"  {what}: K1 launched {got} times in one call")
+
+
 def phase_slice(dev):
     import torch
 
@@ -712,6 +775,8 @@ def phase_slice(dev):
     launches = dict(_build.launch_counts)
     phase(f"  launches over 3 requests + one batch of 8: {launches}")
     require_launches("detect", launches)
+    for b, (x, info) in ((1, (requests[0], im_info)), (8, (images8, im_info8))):
+        require_nms_launches(f"detect b={b}", lambda: fn(model, x, info), 2)
 
     warm = []
     for _ in range(5):
@@ -784,6 +849,7 @@ def phase_train(dev):
     launches = dict(_build.launch_counts)
     phase(f"  launches over 7 train steps: {launches}")
     require_launches("train", launches)
+    require_nms_launches("train step b=8", lambda: step_fn(state, batch), 1)
     for i, v in enumerate(logs):
         phase(f"  step {i}: " + ", ".join(f"{k} {x:.5g}" for k, x in v.items()))
     warm = statistics.median(times[1:])

@@ -7,8 +7,9 @@ conftest (which imports JAX):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Shapes are small and ragged (canvases that are not multiples of the stem's
-tile, box counts that are not multiples of 64) so that every edge path of
-the kernels runs; chip_smoke.py checks the main path's full shapes.
+tile, box counts that are not multiples of 64, batches with an image that
+has no valid box) so that every edge path of the kernels runs;
+chip_smoke.py checks the main path's full shapes.
 """
 
 import numpy as np
@@ -61,6 +62,45 @@ def test_nms_kernel_matches_plain(dev, n, t, max_out, n_groups):
                             groups=None if groups is None else groups.to(dev))
     ci, cv = nms.nms_padded(boxes, scores, valid, t, max_out, groups=groups)
     assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)
+
+
+def _sorted_nms_batch(rng, b, n, n_groups):
+    """(B, N) score-sorted boxes; image 1 (when B > 1) has no valid box."""
+    c = rng.uniform(0, 300, (b, n, 2))
+    s = rng.uniform(4, 60, (b, n, 2))
+    boxes = torch.tensor(np.concatenate([c - s / 2, c + s / 2], -1), dtype=torch.float32)
+    scores = torch.tensor(np.round(rng.uniform(0, 1, (b, n)), 2), dtype=torch.float32)
+    valid = torch.tensor(rng.uniform(0, 1, (b, n)) > 0.1)
+    if b > 1:
+        valid[1] = False
+    groups = (torch.tensor(rng.integers(0, n_groups, (b, n)), dtype=torch.int32)
+              if n_groups else None)
+    order = torch.sort(-torch.where(valid, scores, -torch.inf), dim=1, stable=True).indices
+    return (torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+            torch.gather(valid, 1, order),
+            None if groups is None else torch.gather(groups, 1, order))
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("n,t,max_out,n_groups", [
+    (200, 0.7, 300, 0), (1000, 0.7, 100, 0), (1300, 0.3, 100, 20)])
+def test_batched_nms_kernel_matches_plain(dev, b, n, t, max_out, n_groups):
+    """One K1 launch for the batch equals the plain version per image, an
+    image with no valid box and one with fewer survivors than max_out
+    among them."""
+    boxes, valid, groups = _sorted_nms_batch(np.random.default_rng(b * n), b, n, n_groups)
+    args = [None if a is None else a.to(dev).contiguous() for a in (boxes, valid, groups)]
+    before = _build.launch_counts["nms"]
+    kp, kv = nms.greedy_keep_cuda(args[0], args[1], t, max_out, args[2])
+    assert _build.launch_counts["nms"] == before + 1
+    assert kp.shape == (b, max_out) and kv.shape == (b, max_out)
+    pp, pv = nms.greedy_keep_plain(args[0], args[1], t, max_out, args[2])
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kp, pp)
+    if b > 1:
+        assert not kv[1].any()
+    if max_out == 300:
+        assert 0 < int(kv[0].sum()) < max_out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -135,7 +175,7 @@ def _stem_args(rng, shape, integer, dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2, 2, 3), (2, 10, 34, 3), (1, 30, 18, 3),
-                                   (1, 64, 96, 3)])
+                                   (1, 64, 96, 3), (3, 38, 70, 3), (1, 18, 130, 3)])
 def test_stem_kernel_exact_on_integer_inputs(dev, dtype, shape):
     """Integer-valued inputs make every convolution sum exact in float32 in
     any order, so the kernel must be bit-equal to the plain version: this
@@ -153,3 +193,13 @@ def test_stem_kernel_f32_tolerance(dev, shape):
     k = stem.stem_block1_cuda(*args)
     want = stem.stem_block1_plain(*args)
     assert float((k - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(3, 38, 70, 3), (1, 64, 96, 3), (2, 18, 130, 3)])
+def test_stem_kernel_bf16_tolerance(dev, shape):
+    """Real-valued bf16 inputs on canvases that are not multiples of the
+    tile (8 x 64 conv outputs): within one bf16 ulp of the output scale."""
+    args = _stem_args(np.random.default_rng(2), shape, False, dev, torch.bfloat16)
+    k = stem.stem_block1_cuda(*args).float()
+    want = stem.stem_block1_plain(*args).float()
+    assert float((k - want).abs().max()) <= _bf16_ulp(float(want.abs().max()))

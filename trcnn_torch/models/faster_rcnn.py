@@ -1,7 +1,7 @@
 """Faster R-CNN (port of ``trcnn/models/faster_rcnn.py``).
 
 ``FasterRCNN.detect`` runs the inference path: uint8 canvas preparation,
-VGG-16 trunk, RPN, per-image proposal layer, RoI max-pool and the fc head.
+VGG-16 trunk, RPN, the batched proposal layer, RoI max-pool and the fc head.
 ``postprocess`` is the test-time epilogue: de-normalise and decode the
 class-specific deltas, clip, grouped per-class NMS, and map back to
 original-image coordinates.  ``FasterRCNN.losses`` is the training forward:
@@ -132,14 +132,13 @@ class FasterRCNN(nn.Module):
 
     def propose(self, rpnout, im_info: torch.Tensor, train: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The proposal layer per image on the detached RPN outputs (no
+        """The proposal layer for the batch on the detached RPN outputs (no
         gradient through the proposals' coordinates) -> rois (B, P, 4),
         valid (B, P); ``train`` picks the training capacities."""
-        props = [proposal_layer(rpnout.fg_probs[i].detach(), rpnout.deltas[i].detach(),
-                                im_info[i, 0], im_info[i, 1], im_info[i, 2], train=train,
-                                anchor_cfg=self.cfg.anchors, cfg=self.cfg.proposals)
-                 for i in range(im_info.shape[0])]
-        return torch.stack([p.rois for p in props]), torch.stack([p.valid for p in props])
+        props = proposal_layer(rpnout.fg_probs.detach(), rpnout.deltas.detach(),
+                               im_info[:, 0], im_info[:, 1], im_info[:, 2], train=train,
+                               anchor_cfg=self.cfg.anchors, cfg=self.cfg.proposals)
+        return props.rois, props.valid
 
     def draw_uniforms(self, b: int, feat_hw: Tuple[int, int], num_gt: int,
                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -228,26 +227,25 @@ class FasterRCNN(nn.Module):
 
 def postprocess(raw: RawDetections, im_info: torch.Tensor, cfg: FasterRCNNConfig,
                 score_thresh: Optional[float] = None) -> Detections:
-    """Decode, clip, grouped per-class NMS and merge, per image; boxes are
-    divided by im_scale into original-image coordinates."""
+    """Decode, clip, grouped per-class NMS and merge for the batch (one NMS
+    launch); boxes are divided by im_scale into original-image coordinates."""
     t = cfg.test
     if score_thresh is None:
         score_thresh = t.score_thresh_eval
     dev = raw.rois.device
+    b, r = raw.rois.shape[:2]
     k = cfg.num_classes
     stds = device_constant(tuple(cfg.proposal_targets.bbox_normalize_stds) * k, dev)
     means = device_constant(tuple(cfg.proposal_targets.bbox_normalize_means) * k, dev)
-    outs = []
-    for i in range(raw.rois.shape[0]):
-        info = im_info[i]
-        deltas = raw.bbox_pred[i] * stds + means
-        boxes = clip_boxes(bbox_transform_inv(raw.rois[i], deltas), info[0], info[1])
-        boxes = boxes.reshape(boxes.shape[0], k, 4)
-        det_boxes, det_scores, det_classes, det_valid = multiclass_nms(
-            boxes, raw.cls_prob[i], raw.roi_valid[i], t.nms_thresh, score_thresh,
-            max_per_class=t.max_dets_per_class, max_total=t.max_dets_per_image)
-        outs.append((det_boxes / info[2], det_scores, det_classes, det_valid))
-    return Detections(*(torch.stack(x) for x in zip(*outs)))
+    deltas = raw.bbox_pred * stds + means
+    info = im_info[:, None, None, :]                          # (B, 1, 1, 3)
+    boxes = clip_boxes(bbox_transform_inv(raw.rois, deltas), info[..., 0], info[..., 1])
+    boxes = boxes.reshape(b, r, k, 4)
+    det_boxes, det_scores, det_classes, det_valid = multiclass_nms(
+        boxes, raw.cls_prob, raw.roi_valid, t.nms_thresh, score_thresh,
+        max_per_class=t.max_dets_per_class, max_total=t.max_dets_per_image)
+    return Detections(det_boxes / im_info[:, None, None, 2], det_scores, det_classes,
+                      det_valid)
 
 
 def make_model(cfg: FasterRCNNConfig = FasterRCNNConfig(),

@@ -1,4 +1,5 @@
-"""Greedy NMS over a padded box set (port of ``trcnn/ops/nms.py``).
+"""Greedy NMS over padded box sets, batched over images (port of
+``trcnn/ops/nms.py`` under ``jax.vmap``).
 
 ``nms_padded`` has the contract of the JAX function: optional score sort
 (stable, ties to the lower index), suppression by the division-free
@@ -25,20 +26,14 @@ from trcnn_torch.ops.boxes import box_overlap_gt
 _NEG_INF = float("-inf")
 _BLOCK = 64            # boxes per suppression-mask word (csrc/nms.cu)
 _ROW_CHUNK = 1024      # rows of the pairwise predicate built at a time
+# the reduce pass keeps one bit per box in shared memory, up to the 227 KB a
+# block may have (the launcher lifts the 48 KB default)
+_MAX_SMEM = 227 * 1024 - 2 * 1024
 
 
-def greedy_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
-                      max_out: int, groups: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy NMS over boxes already in score order.
-
-    keep[c] = valid[c] & !any_{r<c}(keep[r] & IoU(r, c) > t), solved by
-    Jacobi iteration from keep = valid: the recurrence is triangular, so its
-    fixpoint is unique and equal to the sequential greedy result.
-
-    Returns (keep_pos (max_out,) int32 positions of the first max_out
-    survivors, 0 in padding slots; keep_valid (max_out,) bool).
-    """
+def _greedy_keep_one(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+                     max_out: int, groups: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     n = boxes.shape[0]
     dev = boxes.device
     over = torch.empty((n, n), dtype=torch.bool, device=dev)
@@ -62,46 +57,77 @@ def greedy_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: floa
     return torch.where(keep_valid, sel, 0).to(torch.int32), keep_valid
 
 
+def greedy_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+                      max_out: int, groups: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over boxes already in score order, per image.
+
+    boxes (B, N, 4) or (N, 4); valid and groups (B, N) or (N,).  For each
+    image keep[c] = valid[c] & !any_{r<c}(keep[r] & IoU(r, c) > t), solved by
+    Jacobi iteration from keep = valid: the recurrence is triangular, so its
+    fixpoint is unique and equal to the sequential greedy result.
+
+    Returns (keep_pos (B, max_out) int32 positions of the first max_out
+    survivors, 0 in padding slots; keep_valid (B, max_out) bool), without
+    the batch axis for an (N, 4) input.
+    """
+    if boxes.dim() == 2:
+        return _greedy_keep_one(boxes, valid, iou_thresh, max_out, groups)
+    outs = [_greedy_keep_one(boxes[i], valid[i], iou_thresh, max_out,
+                             None if groups is None else groups[i])
+            for i in range(boxes.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
 _NMS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def greedy_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
                      max_out: int, groups: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K1: :func:`greedy_keep_plain` on the card."""
-    n = boxes.shape[0]
+    """Kernel K1: :func:`greedy_keep_plain` on the card, one launch for the
+    whole batch."""
     dev = boxes.device
     if dev.type != "cuda":
         raise ValueError(f"greedy_keep_cuda needs CUDA tensors, got {dev}")
-    if boxes.dtype != torch.float32 or boxes.shape != (n, 4) or not boxes.is_contiguous():
-        raise ValueError(f"boxes must be contiguous float32 (N, 4), got "
+    if boxes.dim() == 2:
+        keep_pos, keep_valid = greedy_keep_cuda(
+            boxes[None], valid[None], iou_thresh, max_out,
+            None if groups is None else groups[None])
+        return keep_pos[0], keep_valid[0]
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[2] != 4 \
+            or not boxes.is_contiguous():
+        raise ValueError(f"boxes must be contiguous float32 (B, N, 4), got "
                          f"{boxes.dtype} {tuple(boxes.shape)}")
-    if valid.dtype != torch.bool or valid.shape != (n,) or not valid.is_contiguous():
-        raise ValueError("valid must be a contiguous bool (N,) tensor")
-    if groups is not None and (groups.dtype != torch.int32 or groups.shape != (n,)
+    b, n = boxes.shape[:2]
+    if valid.dtype != torch.bool or valid.shape != (b, n) or not valid.is_contiguous():
+        raise ValueError("valid must be a contiguous bool (B, N) tensor")
+    if groups is not None and (groups.dtype != torch.int32 or groups.shape != (b, n)
                                or not groups.is_contiguous()):
-        raise ValueError("groups must be a contiguous int32 (N,) tensor")
+        raise ValueError("groups must be a contiguous int32 (B, N) tensor")
     for t in (valid, groups):
         if t is not None and t.device != dev:
             raise ValueError("all NMS inputs must be on one device")
     if max_out < 1:
         raise ValueError("max_out must be positive")
     col_blocks = -(-n // _BLOCK)
-    if col_blocks * 8 > 48 * 1024:
+    if col_blocks * 8 > _MAX_SMEM:
         raise ValueError(f"{n} boxes exceed the reduce pass's shared memory")
-    mask = torch.empty((n, col_blocks), dtype=torch.int64, device=dev)
-    keep_pos = torch.empty(max_out, dtype=torch.int32, device=dev)
-    num_kept = torch.empty(1, dtype=torch.int32, device=dev)
+    if b > 65535:
+        raise ValueError(f"a batch of {b} exceeds the mask pass's grid")
+    mask = torch.empty((b, n, col_blocks), dtype=torch.int64, device=dev)
+    keep_pos = torch.empty((b, max_out), dtype=torch.int32, device=dev)
+    num_kept = torch.empty(b, dtype=torch.int32, device=dev)
     fn = _build.function("nms", "trcnn_nms", _NMS_ARGTYPES)
     err = fn(_build.ptr(boxes),
              _build.ptr(groups) if groups is not None else None,
-             _build.ptr(valid), n, iou_thresh, max_out, _build.ptr(mask),
+             _build.ptr(valid), b, n, iou_thresh, max_out, _build.ptr(mask),
              _build.ptr(keep_pos), _build.ptr(num_kept), _build.stream_of(dev))
     _build.check(err, "trcnn_nms")
     _build.count_launch("nms")
-    keep_valid = torch.arange(max_out, device=dev) < num_kept
+    keep_valid = torch.arange(max_out, device=dev) < num_kept[:, None]
     return keep_pos, keep_valid
 
 
@@ -118,30 +144,37 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
                iou_thresh: float, max_out: int, presorted: bool = False,
                groups: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy NMS over a padded set: (N, 4) boxes, (N,) scores and valid.
+    """Greedy NMS over padded sets, per image: (B, N, 4) boxes, (B, N)
+    scores and valid, or one image without the batch axis.
 
     ``presorted``: the caller guarantees score order already (e.g. straight
     out of ``masked_topk_payload``), so the sort is skipped.  ``groups``:
-    optional (N,) int32 ids; only same-group pairs suppress.
+    optional (B, N) int32 ids; only same-group pairs suppress.
 
-    Returns (keep_idx (max_out,) int32 indices into the inputs, score
-    ordered, 0 in padding slots; keep_valid (max_out,) bool).
+    Returns (keep_idx (B, max_out) int32 indices into each image's inputs,
+    score ordered, 0 in padding slots; keep_valid (B, max_out) bool).
     """
+    if boxes.dim() == 2:
+        keep_idx, keep_valid = nms_padded(
+            boxes[None], scores[None], valid[None], iou_thresh, max_out, presorted,
+            None if groups is None else groups[None])
+        return keep_idx[0], keep_valid[0]
     boxes = boxes.float()
     if groups is not None:
         groups = groups.to(torch.int32)
     if presorted:
         order = None
-        sboxes, svalid, sgroups = boxes.contiguous(), valid.contiguous(), groups
+        sboxes, svalid = boxes.contiguous(), valid.contiguous()
+        sgroups = groups.contiguous() if groups is not None else None
     else:
         masked = torch.where(valid, scores.float(), _NEG_INF)
-        neg, order = torch.sort(-masked, stable=True)
-        sboxes = boxes[order]
+        neg, order = torch.sort(-masked, dim=-1, stable=True)
+        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
         svalid = -neg > _NEG_INF
-        sgroups = groups[order] if groups is not None else None
+        sgroups = torch.gather(groups, 1, order) if groups is not None else None
     keep_pos, keep_valid = greedy_keep(sboxes, svalid, iou_thresh, max_out,
                                        sgroups)
-    keep_idx = keep_pos if order is None else order[keep_pos.long()]
+    keep_idx = keep_pos if order is None else torch.gather(order, 1, keep_pos.long())
     keep_idx = torch.where(keep_valid, keep_idx, 0).to(torch.int32)
     return keep_idx, keep_valid
 
@@ -149,37 +182,44 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
                    iou_thresh: float, score_thresh: float, max_per_class: int,
                    max_total: int, class_offset: int = 1):
-    """Test-time per-class NMS + merge (``trcnn/ops/nms.py:249``).
+    """Test-time per-class NMS + merge (``trcnn/ops/nms.py:249``), per image.
 
-    Args: boxes (R, C, 4) class-specific or (R, 4) shared; scores (R, C)
-    with background at column 0; valid (R,).  Returns (det_boxes (D, 4),
-    det_scores (D,), det_classes (D,) int32, det_valid (D,)), D = max_total,
+    Args: boxes (B, R, C, 4) class-specific or (B, R, 4) shared; scores
+    (B, R, C) with background at column 0; valid (B, R); or one image
+    without the batch axis.  Returns (det_boxes (B, D, 4), det_scores
+    (B, D), det_classes (B, D) int32, det_valid (B, D)), D = max_total,
     score-sorted.
 
     Only the single-call path is ported: with ``max_per_class >= max_total``
     (the VOC and COCO test configs) per-class NMS + merge is exactly one
-    grouped greedy NMS over the flattened (class, roi) set.
+    grouped greedy NMS over the flattened (class, roi) set, one K1 launch
+    for the batch.
     """
     if max_per_class < max_total:
         raise NotImplementedError(
             "multiclass_nms with max_per_class < max_total (the per-class "
             "path of trcnn/ops/nms.py) is not ported yet")
-    r, c = scores.shape
+    if scores.dim() == 2:
+        out = multiclass_nms(boxes[None], scores[None], valid[None], iou_thresh,
+                             score_thresh, max_per_class, max_total, class_offset)
+        return tuple(t[0] for t in out)
+    b, r, c = scores.shape
     fg = c - class_offset
-    if boxes.dim() == 2:
-        boxes = boxes[:, None, :].expand(r, c, 4)
-    cls_boxes = boxes[:, class_offset:, :].transpose(0, 1)      # (FG, R, 4)
-    cls_scores = scores[:, class_offset:].transpose(0, 1)       # (FG, R)
-    cls_valid = valid[None, :] & (cls_scores > score_thresh)
-    flat_boxes = cls_boxes.reshape(fg * r, 4)
-    flat_scores = cls_scores.reshape(fg * r)
-    flat_valid = cls_valid.reshape(fg * r)
+    if boxes.dim() == 3:
+        boxes = boxes[:, :, None, :].expand(b, r, c, 4)
+    cls_boxes = boxes[:, :, class_offset:, :].transpose(1, 2)    # (B, FG, R, 4)
+    cls_scores = scores[:, :, class_offset:].transpose(1, 2)     # (B, FG, R)
+    cls_valid = valid[:, None, :] & (cls_scores > score_thresh)
+    flat_boxes = cls_boxes.reshape(b, fg * r, 4)
+    flat_scores = cls_scores.reshape(b, fg * r)
+    flat_valid = cls_valid.reshape(b, fg * r)
     flat_groups = torch.arange(fg, dtype=torch.int32,
-                               device=scores.device).repeat_interleave(r)
+                               device=scores.device).repeat_interleave(r).expand(b, -1)
     keep_idx, keep_valid = nms_padded(flat_boxes, flat_scores, flat_valid,
                                       iou_thresh, max_total, groups=flat_groups)
     k = keep_idx.long()
-    det_scores = torch.where(keep_valid, flat_scores[k], 0.0)
-    det_boxes = torch.where(keep_valid[:, None], flat_boxes[k], 0.0)
+    det_scores = torch.where(keep_valid, torch.gather(flat_scores, 1, k), 0.0)
+    det_boxes = torch.where(keep_valid[..., None],
+                            torch.gather(flat_boxes, 1, k[..., None].expand(-1, -1, 4)), 0.0)
     det_classes = torch.where(keep_valid, keep_idx // r + class_offset, 0)
     return det_boxes, det_scores, det_classes.to(torch.int32), keep_valid
