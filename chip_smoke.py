@@ -9,8 +9,10 @@ Phases, one line each, any failure raises and exits non-zero:
 2. build the CUDA kernels K1-K4 from ``trcnn_torch/csrc``, all at once;
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (K1 batched over 8 images, an empty and a short image
-   among them), with both times (CUDA events, median after warm-up), the
-   least time the card could take (``bound_ms``, from this run's inputs)
+   among them; K2 and K4 also at the ResNet-101-C4 pool, P=14 on a
+   1024-channel map), with both times (CUDA events around back-to-back
+   calls after warm-up), the least time the card could take
+   (``bound_ms``, from this run's inputs) and the kernel's share of it,
    and, for K3, the cuDNN composite's time beside the kernel's;
 4. a small config through the port on the card and on the CPU (plain
    versions) with the same weights: the detections must agree, and one
@@ -78,21 +80,22 @@ def phase(msg: str) -> None:
 
 
 def cuda_time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls after ``warmup`` calls, over the count, so that the host's work
+    of each call overlaps the device's (an event pair around each single
+    call also counts the host's time before its launch)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------- K1 cases
@@ -223,13 +226,13 @@ def bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
-def check_roi_equal(feat, rois, what):
+def check_roi_equal(feat, rois, what, out_size=7):
     import torch
 
     from trcnn_torch.ops import roi_pool
 
-    k = roi_pool.roi_max_pool_cuda(feat, rois)
-    p = roi_pool.roi_max_pool_plain(feat, rois)
+    k = roi_pool.roi_max_pool_cuda(feat, rois, out_size)
+    p = roi_pool.roi_max_pool_plain(feat, rois, out_size)
     if not torch.equal(bits(k), bits(p)):
         raise AssertionError(f"K2 is not bit-equal to the plain version: {what}")
     phase(f"  K2 {what}: bit-equal, {int((p == 0).all(-1).sum())} empty bins")
@@ -309,13 +312,14 @@ def check_roi_bwd(feat, rois, g, what, exact):
     """exact: bit-equal (integer-valued g: every float32 sum is exact in any
     order, so the winners and the sums must agree).  Otherwise float32
     within ROI_BWD_F32_RTOL of the largest |dfeat|, bf16 within one bf16
-    ulp of it (the atomics add in another order)."""
+    ulp of it (the atomics add in another order).  The pool size is g's."""
     import torch
 
     from trcnn_torch.ops import roi_pool
 
-    k = roi_pool.roi_pool_backward_cuda(feat, rois, g)
-    p = roi_pool.roi_pool_backward_plain(feat, rois, g)
+    p_ = g.shape[2]
+    k = roi_pool.roi_pool_backward_cuda(feat, rois, g, p_)
+    p = roi_pool.roi_pool_backward_plain(feat, rois, g, p_)
     err = float((k.float() - p.float()).abs().max())
     scale = float(p.float().abs().max())
     if exact:
@@ -329,6 +333,32 @@ def check_roi_bwd(feat, rois, g, what, exact):
     if not ok:
         raise AssertionError(f"K4 disagrees with the plain version: {what}")
     return err
+
+
+def roi_row(kernel, what, feat, rois, g=None, out_size=7):
+    """K2 (g None) or K4 at one shape: the kernel's time, its share of the
+    bound, the plain version's time and the bound from this run's inputs
+    (bytes: inputs read once, the output written once; operations: the
+    window cells and, for K4, one add per non-empty bin, per channel)."""
+    from trcnn_torch.ops import roi_pool
+
+    b, h, w, c = feat.shape
+    cells, bins = bin_cells(rois, h, w, out_size)
+    if g is None:
+        ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_cuda(feat, rois, out_size))
+        plain_ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_plain(feat, rois, out_size),
+                                warmup=1, iters=3)
+        out_bytes = b * rois.shape[1] * out_size * out_size * c * feat.element_size()
+        bd = bound(nbytes(feat, rois) + out_bytes, cells * float(c), F32_OPS)
+    else:
+        ms = cuda_time_ms(lambda: roi_pool.roi_pool_backward_cuda(feat, rois, g, out_size))
+        plain_ms = cuda_time_ms(
+            lambda: roi_pool.roi_pool_backward_plain(feat, rois, g, out_size), warmup=1, iters=3)
+        bd = bound(nbytes(feat, rois, g, feat), (cells + bins) * float(c), F32_OPS)
+    share = bd["bound_ms"] / ms * 100
+    phase(f"  {kernel} time at {what}: kernel {ms:.4f} ms ({share:.1f}% of bound), plain "
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return dict(shape=what, ms=ms, plain_ms=plain_ms, pct_of_bound=share, **bd)
 
 
 def bin_cells(rois, h, w, out_size=7):
@@ -419,14 +449,7 @@ def phase_kernels(dev):
             feat_t = torch.from_numpy(feat).to(dev, dt)
             err = max(err, check_roi_equal(feat_t, rois_t, f"B={b} {dt}"))
     feat_t = torch.from_numpy(feat).to(dev, torch.bfloat16)
-    ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_cuda(feat_t, rois_t))
-    plain_ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_plain(feat_t, rois_t))
-    cells, _ = bin_cells(rois_t, 38, 64)
-    out_bytes = rois_t.shape[0] * rois_t.shape[1] * 49 * 512 * feat_t.element_size()
-    b2 = bound(nbytes(feat_t, rois_t) + out_bytes, cells * 512.0, F32_OPS)
-    phase(f"  K2 time at B=8 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b2['bound_ms']:.4f} ms ({b2['bound_by']})")
-    rec["roi_pool"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b2)
+    k2_rows = [roi_row("K2", "(8,300) P=7 C=512 bf16 (detect)", feat_t, rois_t)]
 
     # K2 and K4 at the training shape, B=8 x 128 RoIs on the VGG map, f32 and
     # bf16; K4 with integer-valued g (bit-equal), on a tie-heavy map too, and
@@ -439,24 +462,56 @@ def phase_kernels(dev):
     rois_t = torch.from_numpy(rois).to(dev)
     for what, f in (("", feat), (", tie-heavy map", ties)):
         for dt in (torch.bfloat16, torch.float32):
-            rec["roi_pool"]["max_abs_err"] = max(rec["roi_pool"]["max_abs_err"], check_roi_equal(
-                torch.from_numpy(f).to(dev, dt), rois_t, f"B=8x128 {dt}{what} (train)"))
-    err = 0.0
+            err = max(err, check_roi_equal(torch.from_numpy(f).to(dev, dt), rois_t,
+                                           f"B=8x128 {dt}{what} (train)"))
+    k2_rows.append(roi_row("K2", "(8,128) P=7 C=512 bf16 (train)",
+                           torch.from_numpy(feat).to(dev, torch.bfloat16), rois_t))
+    err4 = 0.0
     for dt in (torch.float32, torch.bfloat16):
         for what, f, g, exact in (("integer g", feat, g_int, True),
                                   ("integer g, tie-heavy map", ties, g_int, True),
                                   ("real g", feat, g_real, False)):
             feat_t = torch.from_numpy(f).to(dev, dt)
             g_t = torch.from_numpy(g).to(dev, dt)
-            err = max(err, check_roi_bwd(feat_t, rois_t, g_t, f"B=8x128 {dt} {what}", exact))
-    ms = cuda_time_ms(lambda: roi_pool.roi_pool_backward_cuda(feat_t, rois_t, g_t))
-    plain_ms = cuda_time_ms(lambda: roi_pool.roi_pool_backward_plain(feat_t, rois_t, g_t),
-                            warmup=1, iters=5)
-    cells, bins = bin_cells(rois_t, 38, 64)
-    b4 = bound(nbytes(feat_t, rois_t, g_t, feat_t), (cells + bins) * 512.0, F32_OPS)
-    phase(f"  K4 time at B=8x128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
-    rec["roi_pool_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b4)
+            err4 = max(err4, check_roi_bwd(feat_t, rois_t, g_t, f"B=8x128 {dt} {what}", exact))
+    k4_rows = [roi_row("K4", "(8,128) P=7 C=512 bf16 (train)", feat_t, rois_t, g_t)]
+    ties_t = torch.from_numpy(ties).to(dev, torch.bfloat16)
+    k4_rows.append(roi_row("K4", "(8,128) P=7 C=512 bf16, tie-heavy map", ties_t, rois_t, g_t))
+    del feat_t, g_t, ties_t
+
+    # the ResNet-101-C4 pool: P=14 on a (B, 38, 64, 1024) map, bf16; bit-equal
+    # (K4: integer g, on a real and a tie-heavy map) and real g at B=2, timed
+    # at B=8 (K2 300 RoIs, K4 128)
+    feat, rois = roi_case(2, 128, 40, c=1024)
+    rng = np.random.default_rng(41)
+    rois_t = torch.from_numpy(rois).to(dev)
+    feat_t = torch.from_numpy(feat).to(dev, torch.bfloat16)
+    err = max(err, check_roi_equal(feat_t, rois_t, "B=2x128 P=14 C=1024 bf16", 14))
+    g_int = torch.from_numpy(rng.integers(-4, 5, (2, 128, 14, 14, 1024)).astype(np.float32))
+    ties_t = torch.from_numpy(rng.integers(0, 3, feat.shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    for what, f_t, g_t, exact in (
+            ("integer g", feat_t, g_int, True), ("integer g, tie-heavy map", ties_t, g_int, True),
+            ("real g", feat_t, torch.from_numpy(rng.standard_normal(g_int.shape)), False)):
+        err4 = max(err4, check_roi_bwd(f_t, rois_t, g_t.to(dev, torch.bfloat16),
+                                       f"B=2x128 P=14 C=1024 bf16 {what}", exact))
+    del feat_t, ties_t, g_int
+    feat, rois = roi_case(8, 300, 42, c=1024)
+    feat_t = torch.from_numpy(feat).to(dev, torch.bfloat16)
+    k2_rows.append(roi_row("K2", "(8,300) P=14 C=1024 bf16 (R101)", feat_t,
+                           torch.from_numpy(rois).to(dev), out_size=14))
+    torch.cuda.empty_cache()
+    rois_t = torch.from_numpy(rois[:, :128].copy()).to(dev)
+    g_t = torch.from_numpy(rng.standard_normal((8, 128, 14, 14, 1024)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    k4_rows.append(roi_row("K4", "(8,128) P=14 C=1024 bf16 (R101)", feat_t, rois_t, g_t, 14))
+    del feat_t, g_t
+    torch.cuda.empty_cache()
+    main = ("ms", "plain_ms", "bound_ms", "bound_by")
+    rec["roi_pool"] = dict(max_abs_err=err, library_ms=None, shapes=k2_rows,
+                           **{k: k2_rows[0][k] for k in main})
+    rec["roi_pool_bwd"] = dict(max_abs_err=err4, library_ms=None, shapes=k4_rows,
+                               **{k: k4_rows[0][k] for k in main})
 
     # K3: the full canvas, integer-valued (exact) and real-valued: one image
     # in f32 and bf16 (a request), a batch of 8 in bf16 (detect b=8, train)

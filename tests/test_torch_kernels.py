@@ -103,10 +103,21 @@ def test_batched_nms_kernel_matches_plain(dev, b, n, t, max_out, n_groups):
         assert 0 < int(kv[0].sum()) < max_out
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose base is one element past a 16-byte
+    boundary: the kernels then take their one-element-per-item path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,r,h,w,c", [(1, 5, 7, 9, 3), (2, 37, 21, 30, 40),
-                                       (3, 64, 38, 64, 512)])
+                                       (3, 64, 38, 64, 512), (2, 29, 38, 64, 1024),
+                                       (2, 23, 50, 84, 48)])
 def test_roi_pool_kernel_bit_equal(dev, dtype, b, r, h, w, c):
+    """K2 at P=7 and P=14: the VGG map, the R101-C4 width (C=1024), the
+    COCO map (50 x 84), ragged channel counts (3, 40) and an unaligned
+    base."""
     rng = np.random.default_rng(r)
     x1 = rng.uniform(-60, w * 16 + 30, (b, r))
     y1 = rng.uniform(-60, h * 16 + 30, (b, r))
@@ -115,9 +126,10 @@ def test_roi_pool_kernel_bit_equal(dev, dtype, b, r, h, w, c):
     feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=dev)
     rois_t = torch.tensor(rois, device=dev)
     for p in (7, 14):
-        k = roi_pool.roi_max_pool_cuda(feat, rois_t, p, 1 / 16)
         want = roi_pool.roi_max_pool_plain(feat, rois_t, p, 1 / 16)
-        assert torch.equal(_bits(k), _bits(want))
+        for f in (feat, _unaligned(feat)):
+            k = roi_pool.roi_max_pool_cuda(f, rois_t, p, 1 / 16)
+            assert torch.equal(_bits(k), _bits(want))
 
 
 def _bf16_ulp(x: float) -> float:
@@ -126,14 +138,21 @@ def _bf16_ulp(x: float) -> float:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("b,r,h,w,c", [(1, 5, 7, 9, 3), (2, 37, 21, 30, 48),
-                                       (3, 61, 38, 64, 512)])
-def test_roi_pool_backward_kernel(dev, dtype, ties, b, r, h, w, c):
+@pytest.mark.parametrize("b,r,h,w,c,p", [(1, 5, 7, 9, 3, 7), (2, 37, 21, 30, 48, 7),
+                                         (3, 61, 38, 64, 512, 7), (2, 29, 38, 64, 1024, 14),
+                                         (2, 23, 50, 84, 48, 7), (1, 19, 100, 90, 24, 7),
+                                         (1, 300, 21, 30, 48, 14)])
+def test_roi_pool_backward_kernel(dev, dtype, ties, b, r, h, w, c, p):
     """K4: bit-equal to the plain version with integer-valued gradients
     (every float32 sum exact in any order), the winners included when the
     map is tie-heavy; within rounding with real-valued gradients (float32:
     1e-5 of the largest |dfeat|; bf16: one bf16 ulp of it).  RoIs larger
-    than the map and beyond it (empty bins)."""
+    than the map and beyond it (empty bins).  Shapes: P=14 at the R101-C4
+    width (C=1024); the COCO map (50 x 84), whose slab takes 8 channels a
+    block; a 100 x 90 map, which splits into two row bands with bins that
+    straddle the edge; 300 RoIs at P=14, more than one chunk of RoI ranges
+    in a block's shared memory; ragged channel counts (3, 24, 48) and an
+    unaligned base."""
     rng = np.random.default_rng(r + c)
     x1 = rng.uniform(-60, w * 16 + 30, (b, r))
     y1 = rng.uniform(-60, h * 16 + 30, (b, r))
@@ -143,22 +162,23 @@ def test_roi_pool_backward_kernel(dev, dtype, ties, b, r, h, w, c):
     feat = (rng.integers(0, 3, (b, h, w, c)) if ties else rng.standard_normal((b, h, w, c)))
     feat = torch.tensor(feat, dtype=dtype, device=dev)
     rois_t = torch.tensor(rois, device=dev)
-    g_int = torch.tensor(rng.integers(-4, 5, (b, r, 7, 7, c)), dtype=dtype, device=dev)
-    before = _build.launch_counts["roi_pool_bwd"]
-    k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g_int)
-    assert _build.launch_counts["roi_pool_bwd"] == before + 1
-    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g_int)
-    assert k.dtype == dtype and torch.equal(_bits(k), _bits(want))
-    g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=dtype, device=dev)
-    k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g).float()
-    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g).float()
+    g_int = torch.tensor(rng.integers(-4, 5, (b, r, p, p, c)), dtype=dtype, device=dev)
+    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g_int, p)
+    for f, gi in ((feat, g_int), (_unaligned(feat), _unaligned(g_int))):
+        before = _build.launch_counts["roi_pool_bwd"]
+        k = roi_pool.roi_pool_backward_cuda(f, rois_t, gi, p)
+        assert _build.launch_counts["roi_pool_bwd"] == before + 1
+        assert k.dtype == dtype and torch.equal(_bits(k), _bits(want))
+    g = torch.tensor(rng.standard_normal((b, r, p, p, c)), dtype=dtype, device=dev)
+    k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g, p).float()
+    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g, p).float()
     scale = float(want.abs().max())
     limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
     assert float((k - want).abs().max()) <= limit
     # autograd through roi_max_pool reaches K2 and K4
     x = feat.clone().requires_grad_()
-    roi_pool.roi_max_pool(x, rois_t).backward(g_int)
-    assert torch.equal(_bits(x.grad), _bits(roi_pool.roi_pool_backward_plain(feat, rois_t, g_int)))
+    roi_pool.roi_max_pool(x, rois_t, p).backward(g_int)
+    assert torch.equal(_bits(x.grad), _bits(roi_pool.roi_pool_backward_plain(feat, rois_t, g_int, p)))
 
 
 def _stem_args(rng, shape, integer, dev, dtype):

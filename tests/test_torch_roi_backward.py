@@ -7,6 +7,7 @@ gradients every sum is exact in any order, so the results must be
 bit-equal, tie cases included (a tied bin sends its whole gradient to the
 column-major-first argmax cell).  With real-valued gradients the float32
 sums may be taken in another order: within 1e-5 of the largest |dfeat|.
+Also the ResNet-101-C4 pool size (P=14), and K4's tiling plan.
 """
 
 import functools
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from trcnn.ops.roi_pool import roi_max_pool as jax_roi_max_pool
-from trcnn.ops.roi_pool import roi_pool_backward_oracle_numpy
+from trcnn.ops.roi_pool import roi_max_pool_oracle_numpy, roi_pool_backward_oracle_numpy
 from trcnn_torch.ops import roi_pool
 
 T = torch.from_numpy
@@ -129,3 +130,50 @@ def test_backward_wrapper_refuses_cpu_tensors():
     feat, rois, g = _case(7, b=1, r=2)
     with pytest.raises(ValueError):
         roi_pool.roi_pool_backward_cuda(T(feat), T(rois), T(g))
+
+
+@pytest.mark.parametrize("plateaus", [False, True])
+def test_p14_bit_equal_to_jax_and_oracle(plateaus):
+    """The ResNet-101-C4 pool size, P=14, at ``_case``'s map and channels:
+    the plain forward bit-equal to the JAX package's XLA ``roi_max_pool``
+    and to its numpy oracle; the plain backward and autograd through
+    ``roi_max_pool`` bit-equal to the numpy oracle of the JAX VJP on
+    integer-valued g (the JAX package's tests hold its VJP to that oracle;
+    the VJP itself is left out at P=14 for its compile time on the CPU)."""
+    feat, rois, _ = _case(8, plateaus=plateaus)
+    g = np.random.default_rng(9).integers(-4, 5, (2, 24, 14, 14, 16)).astype(np.float32)
+    pool = jax.vmap(functools.partial(jax_roi_max_pool, out_size=14, spatial_scale=1 / 16))
+    want = np.asarray(pool(jnp.asarray(feat), jnp.asarray(rois)))
+    got = roi_pool.roi_max_pool_plain(T(feat), T(rois), 14).numpy()
+    np.testing.assert_array_equal(got, want)
+    dgot = roi_pool.roi_pool_backward_plain(T(feat), T(rois), T(g), 14).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(got[i], roi_max_pool_oracle_numpy(feat[i], rois[i], 14))
+        np.testing.assert_array_equal(
+            dgot[i], roi_pool_backward_oracle_numpy(feat[i], rois[i], g[i], 14))
+    assert np.abs(dgot).sum() > 0
+    x = T(feat).requires_grad_()
+    roi_pool.roi_max_pool(x, T(rois), 14).backward(T(g))
+    np.testing.assert_array_equal(x.grad.numpy(), dgot)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("h,w,one_band", [(38, 64, True), (50, 84, True), (100, 90, False)],
+                         ids=["vgg_r101", "coco", "tall"])
+def test_bwd_plan_fits_and_tiles_the_map(h, w, itemsize, one_band):
+    """K4's plan: its shared memory (the slice, the slab and the RoI chunk)
+    fits one block's 227 KB, the slice width holds whole 16-byte vectors,
+    and the bands of equal height cover every row of the map once: one band
+    at the VGG and R101 map (38 x 64, whatever the channel count) and the
+    COCO map (50 x 84), several where the map is taller; a map over 255
+    cells on a side has no plan."""
+    cc, rows, smem = roi_pool._bwd_plan(h, w, itemsize)
+    assert cc in (16, 8, 4) and cc * itemsize % 16 == 0
+    tile = -(-h * w * cc * itemsize // 128) * 128
+    assert smem == tile + rows * w * cc * 4 + roi_pool._CHUNK_BYTES <= 232_448
+    bands = [range(y, min(h, y + rows)) for y in range(0, h, rows)]
+    assert sorted(y for band in bands for y in band) == list(range(h))
+    assert (len(bands) == 1) == one_band
+    assert len(bands[0]) - len(bands[-1]) < len(bands)       # equal heights
+    with pytest.raises(ValueError):
+        roi_pool._bwd_plan(h, 256, itemsize)

@@ -22,9 +22,15 @@ backward is written out: :func:`roi_pool_backward_plain`, or kernel K4
 (``csrc/roi_pool_bwd.cu``) on the card.
 
 ``roi_max_pool`` launches K2 / K4 on CUDA tensors and runs the plain
-versions on CPU tensors.  A max is a selection, so K2 is bit-equal to its
-plain version; K4 adds in float32 atomics, bit-equal on integer-valued
-gradients and within rounding otherwise.
+versions on CPU tensors.  K2 (``csrc/roi_pool.cu``) gives each (image,
+RoI) one block that writes the RoI's bins in 16-byte channel vectors; a max
+is a selection, so it is bit-equal to its plain version.  K4 gives each
+(image, channel slice, row band) one block that accumulates the band's
+float32 dfeat in shared memory and writes it once in feat's dtype, so the
+wrapper allocates the output alone: no float32 scratch, no zeroing, no cast.
+The slice width and band height are :func:`_bwd_plan`'s.  K4's shared-memory
+atomics add in a run-dependent order: bit-equal on integer-valued
+gradients, within rounding otherwise.
 """
 
 from __future__ import annotations
@@ -172,7 +178,8 @@ def _check_inputs(what: str, feat: torch.Tensor, rois: torch.Tensor) -> None:
 
 def roi_max_pool_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
                       spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
-    """Kernel K2: :func:`roi_max_pool_plain` on the card."""
+    """Kernel K2: :func:`roi_max_pool_plain` on the card, one block per
+    (image, RoI)."""
     _check_inputs("roi_max_pool_cuda", feat, rois)
     dev = feat.device
     b, h, w, c = feat.shape
@@ -191,13 +198,47 @@ def roi_max_pool_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
 
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p]
+# shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232_448
+# shared memory a K4 block keeps for a chunk of RoIs: their bins' row and
+# column ranges (csrc/roi_pool_bwd.cu kChunkBytes)
+_CHUNK_BYTES = 8192
+
+
+@lru_cache(maxsize=None)
+def _bwd_plan(h: int, w: int, itemsize: int) -> Tuple[int, int, int]:
+    """K4's tiling of an h x w map whose elements take ``itemsize`` bytes:
+    (cc, band_rows, smem_bytes).  A block holds in shared memory its slice
+    of cc channels of the whole map in feat's dtype (rounded up to 128
+    bytes), a float32 slab of band_rows x w x cc, and _CHUNK_BYTES for a
+    chunk of RoIs, at most SMEM_LIMIT in all.  cc is 16, 8 or 4 channels, a
+    multiple of the 16-byte vector (16 // itemsize channels).  The fewest
+    bands of equal height win, then the widest cc.  The kernel keeps cell
+    coordinates in bytes: h and w at most 255."""
+    vec = 16 // itemsize
+    best = None
+    for cc in (16, 8, 4):
+        if cc % vec or h > 255 or w > 255:
+            continue
+        tile = -(-h * w * cc * itemsize // 128) * 128
+        rows = (SMEM_LIMIT - _CHUNK_BYTES - tile) // (w * cc * 4)
+        if rows >= 1 and (best is None or -(-h // rows) < best[1]):
+            best = (cc, -(-h // rows), tile)
+    if best is None:
+        raise ValueError(f"no K4 plan for a {h} x {w} map of {itemsize}-byte elements")
+    cc, bands, tile = best
+    rows = -(-h // bands)
+    return cc, rows, tile + rows * w * cc * 4 + _CHUNK_BYTES
 
 
 def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tensor,
                            out_size: int = 7, spatial_scale: float = 1.0 / 16.0
                            ) -> torch.Tensor:
-    """Kernel K4: :func:`roi_pool_backward_plain` on the card."""
+    """Kernel K4: :func:`roi_pool_backward_plain` on the card.  One launch
+    writes every element of dfeat, allocated here in feat's dtype, from
+    float32 sums kept in shared memory (tiling from :func:`_bwd_plan`)."""
     _check_inputs("roi_pool_backward_cuda", feat, rois)
     b, h, w, c = feat.shape
     r = rois.shape[1]
@@ -205,16 +246,17 @@ def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tens
             or tuple(g.shape) != (b, r, out_size, out_size, c)):
         raise ValueError(f"g must be a contiguous {feat.dtype} {(b, r, out_size, out_size, c)} "
                          f"tensor on {feat.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
-    dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=feat.device)
-    if g.numel() == 0 or dfeat.numel() == 0:
-        return dfeat.to(feat.dtype)
+    dfeat = torch.empty_like(feat)
+    if dfeat.numel() == 0:
+        return dfeat
+    cc, rows, smem = _bwd_plan(h, w, feat.element_size())
     fn = _build.function("roi_pool_bwd", "trcnn_roi_pool_bwd", _BWD_ARGTYPES)
     err = fn(_build.ptr(feat), _build.ptr(rois), _build.ptr(g), b, r, h, w, c, out_size,
-             spatial_scale, _DTYPE_CODE[feat.dtype], _build.ptr(dfeat),
+             spatial_scale, _DTYPE_CODE[feat.dtype], cc, rows, smem, _build.ptr(dfeat),
              _build.stream_of(feat.device))
     _build.check(err, "trcnn_roi_pool_bwd")
     _build.count_launch("roi_pool_bwd")
-    return dfeat.to(feat.dtype)
+    return dfeat
 
 
 class _RoIMaxPool(torch.autograd.Function):
