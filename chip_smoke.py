@@ -14,19 +14,26 @@ Phases, one line each, any failure raises and exits non-zero:
    calls after warm-up), the least time the card could take
    (``bound_ms``, from this run's inputs) and the kernel's share of it,
    and, for K3, the cuDNN composite's time beside the kernel's;
-4. a small config through the port on the card and on the CPU (plain
-   versions) with the same weights: the detections must agree, and one
-   training forward with the same sampling draws must make the same
-   sampling decisions and losses;
-5. the two main paths at full width, VGG-16 VOC, seeded weights, bf16 with
-   float32 master weights, uint8 608x1024 canvases, each with the launch
-   counters set to 0 before it and read after it:
+4. for each backbone (VGG-16, ResNet-101-C4), a small config through the
+   port on the card and on the CPU (plain versions) with the same weights
+   (ResNet-101's conv3 kernels and FrozenBN leaves randomised, so the
+   residual branches are live): the detections must agree; one training
+   forward with the same sampling draws must make the same sampling
+   decisions and losses, and one training step (forward, backward,
+   update) the same gradients and parameters within tolerance;
+5. the main paths at full width, VOC, seeded weights, bf16 with float32
+   master weights, uint8 608x1024 canvases, each with the launch counters
+   set to 0 before it and read after it, for VGG-16 and then ResNet-101-C4:
    - detect, through ``trcnn_torch.entry.entry``: three one-image requests
-     and one batch of 8; K1-K3 must move, K1 exactly twice per call;
+     and one batch of 8; K1 exactly twice per call; K1-K3 must move on
+     VGG-16, K1 and K2 on ResNet-101 and K3 not (its stem is a 7x7 conv);
    - train, through ``trcnn_torch.entry.train_entry``: one cold step and 6
-     timed steps at batch 8; K1-K4 must move, K1 exactly once per step;
-6. one float32 request and one float32 train step whose kernel inputs are
-   captured and replayed through the plain versions.
+     timed steps at batch 8; K1 exactly once per step; K1-K4 must move on
+     VGG-16, K1, K2 and K4 on ResNet-101 and K3 not;
+   ResNet-101's K2 and K4 are also timed on the inputs its batch of 8 and
+   its train step give them (P=14);
+6. per backbone, one float32 request and one float32 train step whose
+   kernel inputs are captured and replayed through the plain versions.
 
 The next-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -51,11 +58,21 @@ KERNELS = {
     "roi_pool_bwd": ("trcnn_torch/csrc/roi_pool_bwd.cu", "trcnn/ops/roi_pool_pallas.py:571"),
     "stem": ("trcnn_torch/csrc/stem.cu", "trcnn/ops/stem_pallas.py:226"),
 }
-# kernels each main path must launch
-REQUIRED = {"detect": ("nms", "roi_pool", "stem"),
-            "train": ("nms", "roi_pool", "roi_pool_bwd", "stem")}
+# the kernels each main path launches; it must launch each of them and no
+# other (K3 is VGG-16's conv1 block only)
+REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
+            "vgg16 train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            "resnet101 detect": ("nms", "roi_pool"),
+            "resnet101 train": ("nms", "roi_pool", "roi_pool_bwd")}
+BACKBONES = ("vgg16", "resnet101")
+NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
 ROI_BWD_F32_RTOL = 1e-5
+# float32 gradients, card against CPU: each trained tensor within this
+# share of its largest CPU gradient, the median share within 1e-3.  The
+# port's own CPU gradients at 1 and 8 threads differ by up to 3.8e-3 on
+# the ResNet-101 small config (tests/test_torch_resnet_train.py)
+GRAD_RTOL = 1e-2
 # one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and float32 (CUDA core) operations/s
 HBM_BPS = 3.35e12
@@ -551,52 +568,143 @@ def phase_kernels(dev):
     return rec
 
 
-def phase_small_parity(dev):
-    """The golden test's config through the port on the card and on the CPU
-    with the same seeded weights, float32."""
+def small_cfg(backbone: str):
+    """The small detect configs: tests/test_golden_e2e.py's (VGG-16) and
+    tests/test_cross_impl_resnet.py's (ResNet-101: 128 x 192 canvas, RPN
+    width 64, 512 -> 48 proposals)."""
+    from trcnn_torch.config import (AnchorConfig, FasterRCNNConfig, ImageConfig,
+                                    ProposalConfig, TestTimeConfig)
+
+    if backbone == "vgg16":
+        return FasterRCNNConfig(head_hidden=32, rpn_channels=16,
+                                proposals=ProposalConfig(pre_nms_topk_test=192,
+                                                         post_nms_topk_test=24))
+    return FasterRCNNConfig(backbone="resnet101", rpn_channels=64,
+                            anchors=AnchorConfig(scales=(2.0, 4.0, 8.0)),
+                            proposals=ProposalConfig(pre_nms_topk_test=512,
+                                                     post_nms_topk_test=48),
+                            image=ImageConfig(pad_h=128, pad_w=192),
+                            test=TestTimeConfig(max_dets_per_class=32, max_dets_per_image=32))
+
+
+def wake_residuals(model, gen) -> None:
+    """As tests/test_cross_impl_resnet.py's fixture does, from ``gen``:
+    every bottleneck's conv3 kernel normal(0, 0.02) (zero at init, which
+    leaves each residual branch dead) and every FrozenBN leaf random (scale
+    and var uniform in [0.5, 1.5), mean and bias normal(0, 0.1))."""
     import torch
 
-    from trcnn_torch.config import FasterRCNNConfig, ProposalConfig
+    from trcnn_torch.models.resnet import Bottleneck, FrozenBatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Bottleneck):
+                m.conv3.weight.normal_(0.0, 0.02, generator=gen)
+            elif isinstance(m, FrozenBatchNorm):
+                for t in (m.scale, m.var):
+                    t.uniform_(0.5, 1.5, generator=gen)
+                for t in (m.mean, m.bias):
+                    t.normal_(0.0, 0.1, generator=gen)
+
+
+def calibrate(model, images, info, head: bool) -> None:
+    """Spread the RPN's scores and deltas (a 0.01-sigma init is
+    tie-dominated) and, with ``head``, the head's class scores and deltas
+    on fixed RoIs, as the JAX fixtures do."""
+    import torch
+
+    with torch.no_grad():
+        feat = model.extractor(model._prepare(images, info))
+        rpn = model.rpn(feat)
+        model.rpn.rpn_cls_score.weight.mul_(2.0 / float(rpn.logits.std()))
+        model.rpn.rpn_bbox_pred.weight.mul_(0.15 / float(rpn.deltas.std()))
+        if head:
+            rois = torch.stack([torch.tensor([10.0, 10.0, 80.0, 90.0]) + 3 * i
+                                for i in range(8)]).expand(images.shape[0], 8, 4)
+            cs, bp = model.roi_forward(feat, rois.contiguous())
+            model.head.cls_score.weight.mul_(2.0 / float(cs.std()))
+            model.head.bbox_pred.weight.mul_(0.1 / float(bp.std()))
+
+
+def small_model(backbone: str, cfg, seed: int, images, info, head: bool):
+    """The float32 CPU model of a small config, initialised from ``seed``;
+    ResNet-101's residual branches woken; outputs spread (:func:`calibrate`)."""
+    import torch
+
+    from trcnn_torch.models import make_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = make_model(cfg, device="cpu").init(gen)
+    if backbone == "resnet101":
+        wake_residuals(model, gen)
+    calibrate(model, images, info, head)
+    return model
+
+
+def phase_small_parity(dev, backbone: str):
+    """The small detect config through the port on the card and on the CPU
+    with the same seeded weights, float32: VGG-16 on uint8 images with the
+    init's head (score threshold 0.02), ResNet-101 on real-valued images
+    with its outputs spread (the config's threshold)."""
+    import torch
+
     from trcnn_torch.models import make_model, postprocess
 
-    cfg = FasterRCNNConfig(head_hidden=32, rpn_channels=16,
-                           proposals=ProposalConfig(pre_nms_topk_test=192,
-                                                    post_nms_topk_test=24))
-    cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(42)).eval()
+    cfg = small_cfg(backbone)
+    rng = np.random.default_rng(42)
+    if backbone == "vgg16":
+        cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(42)).eval()
+        images = torch.from_numpy(rng.uniform(0, 256, (2, 64, 96, 3)).astype(np.uint8))
+        info = torch.tensor([[60.0, 90.0, 1.2], [64.0, 80.0, 1.0]])
+        thresh = 0.02
+    else:
+        images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
+        info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
+        cpu = small_model(backbone, cfg, 21, images, info, head=True).eval()
+        thresh = None
     gpu = make_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.default_rng(42)
-    images = torch.from_numpy(rng.uniform(0, 256, (2, 64, 96, 3)).astype(np.uint8))
-    info = torch.tensor([[60.0, 90.0, 1.2], [64.0, 80.0, 1.0]])
+    gpu.eval()
     with torch.no_grad():
         ref_raw = cpu.detect(images, info)
-        ref = postprocess(ref_raw, info, cfg, score_thresh=0.02)
+        ref = postprocess(ref_raw, info, cfg, score_thresh=thresh)
         raw = gpu.detect(images.to(dev), info.to(dev))
-        got = postprocess(raw, info.to(dev), cfg, score_thresh=0.02)
+        got = postprocess(raw, info.to(dev), cfg, score_thresh=thresh)
     got_raw = [t.cpu() for t in raw]
     got = [t.cpu() for t in got]
+    what = f"small {NAMES[backbone]} config"
     if not torch.equal(got_raw[1], ref_raw.roi_valid):
-        raise AssertionError("small config: roi_valid differs between card and CPU")
+        raise AssertionError(f"{what}: roi_valid differs between card and CPU")
     torch.testing.assert_close(got_raw[0], ref_raw.rois, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(got_raw[2], ref_raw.cls_prob, rtol=1e-4, atol=1e-5)
     if not (torch.equal(got[3], ref.valid) and torch.equal(got[2], ref.classes)):
-        raise AssertionError("small config: detections differ between card and CPU")
+        raise AssertionError(f"{what}: detections differ between card and CPU")
     torch.testing.assert_close(got[0], ref.boxes, rtol=1e-3, atol=1e-2)
-    phase(f"small config: card == CPU plain path, {int(ref.valid.sum())} detections")
+    torch.testing.assert_close(got[1], ref.scores, rtol=1e-4, atol=1e-5)
+    if backbone == "resnet101" and int(ref.valid.sum()) <= 3:
+        raise AssertionError(f"{what}: degenerate, {int(ref.valid.sum())} detections")
+    phase(f"{what}: card == CPU plain path, {int(ref.valid.sum())} detections")
 
 
-def train_cfg():
-    """The small training config of tests/test_cross_impl_train.py."""
+def train_cfg(backbone: str = "vgg16"):
+    """The small training configs: tests/test_cross_impl_train.py's
+    (VGG-16), and for ResNet-101 the small detect config with its sampling
+    capacities (tests/test_torch_resnet_train.py)."""
     from trcnn_torch.config import (AnchorConfig, FasterRCNNConfig, ImageConfig,
                                     ProposalConfig, ProposalTargetConfig)
 
+    targets = ProposalTargetConfig(rois_per_image=16)
+    if backbone == "resnet101":
+        return small_cfg(backbone).replace(
+            proposals=ProposalConfig(pre_nms_topk_train=512, post_nms_topk_train=64,
+                                     pre_nms_topk_test=512, post_nms_topk_test=48),
+            proposal_targets=targets)
     return FasterRCNNConfig(
         head_hidden=64, rpn_channels=64, head_dropout=0.0,
         anchors=AnchorConfig(scales=(2.0, 4.0, 8.0)),
         proposals=ProposalConfig(pre_nms_topk_train=512, post_nms_topk_train=64,
                                  pre_nms_topk_test=512, post_nms_topk_test=64),
-        proposal_targets=ProposalTargetConfig(rois_per_image=16),
-        image=ImageConfig(pad_h=128, pad_w=192))
+        proposal_targets=targets, image=ImageConfig(pad_h=128, pad_w=192))
 
 
 def train_proposals(model, images, im_info):
@@ -609,19 +717,23 @@ def train_proposals(model, images, im_info):
         return model.propose(rpn, im_info, train=True)
 
 
-def phase_train_parity(dev):
-    """One training forward of the small config on the card and on the CPU
-    (plain versions), float32, the same weights and the same sampling draws
-    (drawn on the CPU: a CUDA generator gives other numbers).  Anchor-target
-    decisions and sample counts must be equal, the losses within 1e-4."""
+def phase_train_parity(dev, backbone: str):
+    """The small training config on the card and on the CPU (plain
+    versions), float32, the same weights and the same sampling draws
+    (drawn on the CPU: a CUDA generator gives other numbers).  One
+    training forward: anchor-target decisions and sample counts equal, the
+    losses within 1e-4.  Then one training step on both (forward, backward,
+    the Caffe-order update) from the same state on the CPU's proposals:
+    the losses within 1e-4, the gradients within GRAD_RTOL, the parameters
+    within 1e-5 of their largest magnitude plus the gradients' share, the
+    frozen ones unchanged."""
     import torch
 
     from trcnn_torch.models import make_model
     from trcnn_torch.ops.anchors import shifted_anchors
     from trcnn_torch.targets import anchor_targets
 
-    cfg = train_cfg()
-    cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    cfg = train_cfg(backbone)
     rng = np.random.default_rng(3)
     images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
     info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
@@ -630,17 +742,13 @@ def phase_train_parity(dev):
     gtb[1, :2] = torch.tensor([[20, 15, 95, 80], [100, 40, 150, 95.0]])
     gtl = torch.tensor([[3, 7, 12, 0], [5, 18, 0, 0]], dtype=torch.int32)
     gtv = torch.tensor([[True, True, True, False], [True, True, False, False]])
-    # spread the RPN scores (a 0.01-sigma init is tie-dominated), as the
-    # JAX fixture does
-    with torch.no_grad():
-        rpn = cpu.rpn(cpu.extractor(images))
-        cpu.rpn.rpn_cls_score.weight.mul_(2.0 / float(rpn.logits.std()))
-        cpu.rpn.rpn_bbox_pred.weight.mul_(0.15 / float(rpn.deltas.std()))
+    cpu = small_model(backbone, cfg, 3, images, info, head=False)
     gpu = make_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict())
     uni = cpu.draw_uniforms(2, (8, 12), 4, torch.Generator().manual_seed(4))
     args = (images, info, gtb, gtl, gtv)
     on_dev = lambda ts: [t.to(dev) for t in ts]  # noqa: E731
+    what = f"small {NAMES[backbone]} config training"
 
     anchors = shifted_anchors(8, 12, cfg.anchors)
     at_c = anchor_targets(anchors, gtb, gtv, info[:, 0], info[:, 1], uni["at_fg"],
@@ -649,7 +757,7 @@ def phase_train_parity(dev):
                                    uni["at_bg"])), cfg.anchor_targets)
     if not (torch.equal(at_g.labels.cpu(), at_c.labels)
             and torch.equal(at_g.num_fg.cpu(), at_c.num_fg)):
-        raise AssertionError("small config: anchor-target decisions differ")
+        raise AssertionError(f"{what}: anchor-target decisions differ")
 
     gpu_uni = {k: v.to(dev) for k, v in uni.items()}
     with torch.no_grad():
@@ -660,23 +768,82 @@ def phase_train_parity(dev):
     same = torch.equal(props_g[1], props_c[1]) and torch.allclose(props_g[0], props_c[0],
                                                                    rtol=1e-5, atol=1e-3)
     if not same:
-        phase("  small config: the card's proposals differ from the CPU's (a score "
-              "rounds differently); losses compared on the CPU's proposals")
+        phase(f"  {what}: the card's proposals differ from the CPU's (a score "
+              f"rounds differently); losses compared on the CPU's proposals")
         with torch.no_grad():
             got = gpu.losses(*on_dev(args), generator=torch.Generator(device=dev),
                              uniforms=gpu_uni, proposals=on_dev(props_c))
-    for k in ("num_fg_anchors", "num_fg_rois"):
-        if float(got[k]) != float(ref[k]):
-            raise AssertionError(f"small config: {k} {float(got[k])} vs CPU {float(ref[k])}")
-    worst = 0.0
-    for k in ("loss", "rpn_cls_loss", "rpn_bbox_loss", "cls_loss", "bbox_loss"):
-        rel = abs(float(got[k]) - float(ref[k])) / abs(float(ref[k]))
-        worst = max(worst, rel)
-        if rel > 1e-4:
-            raise AssertionError(f"small config: {k} {float(got[k])} vs CPU {float(ref[k])}")
-    phase(f"small config training: card == CPU plain path, proposals "
+    worst = compare_losses(got, ref, what)
+    phase(f"{what}: card == CPU plain path, proposals "
           f"{'equal' if same else 'differ'}, fg anchors {float(ref['num_fg_anchors'])}, "
           f"fg rois {float(ref['num_fg_rois'])}, losses within {worst:.2e} relative")
+    train_step_parity(cpu, gpu, (args, on_dev(args)), (uni, gpu_uni),
+                      (props_c, on_dev(props_c)), what)
+
+
+def compare_losses(got, ref, what) -> float:
+    """Sample counts equal, the four losses and their sum within 1e-4
+    relative; the worst relative difference."""
+    got, ref = ({k: float(v.detach()) for k, v in d.items()} for d in (got, ref))
+    for k in ("num_fg_anchors", "num_fg_rois"):
+        if got[k] != ref[k]:
+            raise AssertionError(f"{what}: {k} {got[k]} vs CPU {ref[k]}")
+    worst = 0.0
+    for k in ("loss", "rpn_cls_loss", "rpn_bbox_loss", "cls_loss", "bbox_loss"):
+        rel = abs(got[k] - ref[k]) / abs(ref[k])
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"{what}: {k} {got[k]} vs CPU {ref[k]}")
+    return worst
+
+
+def train_step_parity(cpu, gpu, args, uniforms, proposals, what) -> None:
+    """One training step of ``cpu`` and ``gpu`` (equal weights) from a zero
+    momentum, each on its own device's copy of the same batch, uniforms
+    and proposals: the losses, the gradients and the updated parameters
+    compared (see :func:`phase_train_parity`)."""
+    import torch
+
+    from trcnn_torch.train import TrainState, learning_rate
+    from trcnn_torch.train.optim import is_frozen
+
+    before = {k: p.detach().clone() for k, p in cpu.named_parameters()}
+    res = []
+    for i, model in enumerate((cpu, gpu)):
+        model.train()
+        state = TrainState.create(model)
+        gen = torch.Generator(device=args[i][0].device)
+        out = model.losses(*args[i], generator=gen, uniforms=uniforms[i], proposals=proposals[i])
+        model.zero_grad(set_to_none=True)
+        out["loss"].backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+        state.optimizer.step(0)
+        res.append((out, grads, {k: p.detach().cpu() for k, p in model.named_parameters()}))
+    (ref, g_c, p_c), (got, g_g, p_g) = res
+    worst = compare_losses(got, ref, what + " step")
+    backbone = cpu.cfg.backbone
+    if g_c.keys() != g_g.keys() or any(is_frozen(k, backbone) for k in g_c):
+        raise AssertionError(f"{what} step: gradients reach other tensors on the card")
+    ratios = {k: float((g_g[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+              for k, w in g_c.items()}
+    top = max(ratios, key=ratios.get)
+    if ratios[top] > GRAD_RTOL or statistics.median(ratios.values()) > 1e-3:
+        raise AssertionError(f"{what} step: gradient of {top} differs by {ratios[top]:.3e}")
+    lr = learning_rate(cpu.cfg.optim, 0)
+    for k, w in p_c.items():
+        if is_frozen(k, backbone):
+            if not (torch.equal(w, before[k]) and torch.equal(p_g[k], before[k])):
+                raise AssertionError(f"{what} step: frozen {k} moved")
+            continue
+        slack = (1 + (w.dim() <= 1)) * lr * GRAD_RTOL * float(g_c[k].abs().max())
+        if torch.equal(w, before[k]) or float((p_g[k] - w).abs().max()) > (
+                1e-5 * float(w.abs().max()) + slack):
+            raise AssertionError(f"{what} step: {k} after the update differs from the CPU's")
+    phase(f"{what} step: card == CPU plain path, losses within {worst:.2e}, gradients within "
+          f"{ratios[top]:.2e} of the largest ({top}; median "
+          f"{statistics.median(ratios.values()):.2e} over {len(ratios)} tensors), "
+          f"parameters within tolerance, {sum(is_frozen(k, backbone) for k in p_c)} frozen "
+          f"unchanged")
 
 
 # kernel-name fragments -> what they are, for the profile's breakdown
@@ -778,9 +945,13 @@ def check_dets(dets, b, d=100):
 
 
 def require_launches(path, launches):
+    """The path launched each of its kernels (``REQUIRED``) and no other."""
     missing = [k for k in REQUIRED[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"the {path} path never launched {missing}")
+    extra = [k for k, n in launches.items() if n and k not in REQUIRED[path]]
+    if extra:
+        raise AssertionError(f"the {path} path launched {extra}, which it must not")
 
 
 def require_nms_launches(what, call, want):
@@ -798,16 +969,20 @@ def require_nms_launches(what, call, want):
     phase(f"  {what}: K1 launched {got} times in one call")
 
 
-def phase_slice(dev):
+def phase_slice(dev, backbone: str, rec):
+    """The full-width detect path: 3 requests and a batch of 8 with the
+    launch counts read, the latencies, the profile; for ResNet-101, K2
+    timed on the inputs of its batch of 8 (:func:`path_kernel_rows`)."""
     import torch
 
     from trcnn_torch import _build
     from trcnn_torch.entry import entry
 
     t0 = time.perf_counter()
-    fn, (model, image, im_info) = entry(dev)
+    fn, (model, image, im_info) = entry(dev, backbone=backbone)
     torch.cuda.synchronize()
-    phase(f"slice: VOC VGG-16 bf16, head_hidden {model.cfg.head_hidden}, built in "
+    torch.cuda.reset_peak_memory_stats()
+    phase(f"slice: VOC {NAMES[backbone]} bf16, RoI pool {model.pool_size}, built in "
           f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(7)
     requests = [torch.randint(0, 256, image.shape, dtype=torch.uint8, generator=gen,
@@ -829,7 +1004,7 @@ def phase_slice(dev):
     check_dets(dets8, 8)
     launches = dict(_build.launch_counts)
     phase(f"  launches over 3 requests + one batch of 8: {launches}")
-    require_launches("detect", launches)
+    require_launches(f"{backbone} detect", launches)
     for b, (x, info) in ((1, (requests[0], im_info)), (8, (images8, im_info8))):
         require_nms_launches(f"detect b={b}", lambda: fn(model, x, info), 2)
 
@@ -851,7 +1026,10 @@ def phase_slice(dev):
           f"{8 / statistics.median(b8):.2f} img/s")
     profile_window(lambda: fn(model, images8, im_info8), 3, "detect b=8")
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if backbone == "resnet101":
+        path_kernel_rows(rec, lambda: fn(model, images8, im_info8), "R101 detect b=8")
     del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -866,11 +1044,12 @@ def check_step(m, step):
     return vals
 
 
-def phase_train(dev):
+def phase_train(dev, backbone: str, rec):
     """The full-width training step through train_entry: one cold step, 6
     timed ones; the parameters move after the first, the frozen ones never;
     then 3 profiled steps, split into the step's own forward / backward /
-    optimizer spans."""
+    optimizer spans; for ResNet-101, K2 and K4 timed on one step's inputs
+    (:func:`path_kernel_rows`)."""
     import torch
 
     from trcnn_torch import _build
@@ -879,12 +1058,12 @@ def phase_train(dev):
     from trcnn_torch.train.step import STAGES
 
     t0 = time.perf_counter()
-    step_fn, (state, batch) = train_entry(dev)
+    step_fn, (state, batch) = train_entry(dev, backbone=backbone)
     torch.cuda.synchronize()
     model = state.model
-    phase(f"train: VOC VGG-16 bf16 compute, f32 master weights, head_hidden "
-          f"{model.cfg.head_hidden}, batch {batch['images'].shape[0]} uint8 "
-          f"{tuple(batch['images'].shape[1:3])}, built in {time.perf_counter() - t0:.1f} s")
+    phase(f"train: VOC {NAMES[backbone]} bf16 compute, f32 master weights, batch "
+          f"{batch['images'].shape[0]} uint8 {tuple(batch['images'].shape[1:3])}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
 
@@ -899,11 +1078,15 @@ def phase_train(dev):
         if i == 0:
             for k, p in model.named_parameters():
                 moved = not torch.equal(p.detach(), before[k])
-                if moved == is_frozen(k):
+                if moved == is_frozen(k, backbone):
                     raise AssertionError(f"after step 1, {k} {'moved' if moved else 'did not move'}")
     launches = dict(_build.launch_counts)
-    phase(f"  launches over 7 train steps: {launches}")
-    require_launches("train", launches)
+    frozen = [k for k, p in model.named_parameters() if is_frozen(k, backbone)]
+    if any(not torch.equal(model.get_parameter(k), before[k]) for k in frozen):
+        raise AssertionError("a frozen parameter moved within 7 steps")
+    phase(f"  launches over 7 train steps: {launches}; {len(frozen)} frozen parameters "
+          f"unchanged")
+    require_launches(f"{backbone} train", launches)
     require_nms_launches("train step b=8", lambda: step_fn(state, batch), 1)
     for i, v in enumerate(logs):
         phase(f"  step {i}: " + ", ".join(f"{k} {x:.5g}" for k, x in v.items()))
@@ -913,6 +1096,8 @@ def phase_train(dev):
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     profile_window(lambda: step_fn(state, batch), 3, "train step b=8", STAGES)
+    if backbone == "resnet101":
+        path_kernel_rows(rec, lambda: step_fn(state, batch), "R101 train b=8")
     del model, state, before
     torch.cuda.empty_cache()
     return launches
@@ -978,7 +1163,36 @@ def replay(captured, what):
                                      if "roi_pool_bwd" in captured else ""))
 
 
-def phase_capture(dev):
+def path_kernel_rows(rec, call, what):
+    """One more call of a path with K2's and K4's inputs recorded (after
+    its launch counts were read): each kernel checked against its plain
+    version on them (K2 bit-equal; K4 within one bf16 ulp of the largest
+    |dfeat|, or ROI_BWD_F32_RTOL in float32) and timed on them
+    (:func:`roi_row`); the rows join the kernel's ``shapes``."""
+    import torch
+
+    captured = {}
+    with recording(captured):
+        call()
+        torch.cuda.synchronize()
+    for key, kernel in (("roi_pool", "K2"), ("roi_pool_bwd", "K4")):
+        for args, _ in captured.get(key, []):
+            feat, rois, g = args[0], args[1], (args[2] if key == "roi_pool_bwd" else None)
+            p = args[-2]
+            shape = (f"{tuple(rois.shape[:2])} P={p} C={feat.shape[-1]} "
+                     f"{str(feat.dtype).split('.')[-1]} ({what} inputs)")
+            if g is None:
+                err = check_roi_equal(feat, rois, shape, p)
+            else:
+                err = check_roi_bwd(feat, rois, g, shape, exact=False)
+            row = roi_row(kernel, shape, feat, rois, g, p)
+            rec[key]["shapes"].append(row)
+            rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+    del captured
+    torch.cuda.empty_cache()
+
+
+def phase_capture(dev, backbone: str):
     """One float32 request and one float32 train step (batch 2); each
     kernel's actual inputs are recorded and replayed through its plain
     version."""
@@ -986,28 +1200,32 @@ def phase_capture(dev):
 
     from trcnn_torch.entry import entry, train_entry
 
+    name = NAMES[backbone]
     captured = {}
     with recording(captured):
-        fn, (model, image, im_info) = entry(dev, dtype=torch.float32)
+        fn, (model, image, im_info) = entry(dev, dtype=torch.float32, backbone=backbone)
         dets = fn(model, image, im_info)
         torch.cuda.synchronize()
     check_dets(dets, 1)
     del model
-    for key in REQUIRED["detect"]:
-        if not captured.get(key):
-            raise AssertionError(f"f32 request did not reach {key}")
-    replay(captured, "request")
+    if set(captured) != set(REQUIRED[f"{backbone} detect"]):
+        raise AssertionError(f"f32 {name} request reached {sorted(captured)}")
+    replay(captured, f"{name} request")
 
     captured = {}
     with recording(captured):
-        step_fn, (state, batch) = train_entry(dev, dtype=torch.float32, batch_size=2)
+        step_fn, (state, batch) = train_entry(dev, dtype=torch.float32, batch_size=2,
+                                              backbone=backbone)
         check_step(step_fn(state, batch), 0)
         torch.cuda.synchronize()
     del state
-    for key in REQUIRED["train"]:
-        if not captured.get(key):
-            raise AssertionError(f"f32 train step did not reach {key}")
-    replay(captured, "train step")
+    if set(captured) != set(REQUIRED[f"{backbone} train"]):
+        raise AssertionError(f"f32 {name} train step reached {sorted(captured)}")
+    pools = {args[-2] for key in ("roi_pool", "roi_pool_bwd") for args, _ in captured[key]}
+    if pools != {14 if backbone == "resnet101" else 7}:
+        raise AssertionError(f"f32 {name} train step pooled at {pools}")
+    replay(captured, f"{name} train step (RoI pool {pools.pop()})")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1025,10 +1243,15 @@ def main() -> int:
     phase_card()
     phase_build()
     rec = phase_kernels(dev)
-    phase_small_parity(dev)
-    phase_train_parity(dev)
-    by_path = {"detect": phase_slice(dev), "train": phase_train(dev)}
-    phase_capture(dev)
+    for backbone in BACKBONES:
+        phase_small_parity(dev, backbone)
+        phase_train_parity(dev, backbone)
+    by_path = {}
+    for backbone in BACKBONES:
+        by_path[f"{backbone} detect"] = phase_slice(dev, backbone, rec)
+        by_path[f"{backbone} train"] = phase_train(dev, backbone, rec)
+    for backbone in BACKBONES:
+        phase_capture(dev, backbone)
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
                     replaces=KERNELS[name][1],
                     launches=sum(p[name] for p in by_path.values()),

@@ -9,8 +9,14 @@ conftest (which imports JAX):
 Shapes are small and ragged (canvases that are not multiples of the stem's
 tile, box counts that are not multiples of 64, batches with an image that
 has no valid box) so that every edge path of the kernels runs;
-chip_smoke.py checks the main path's full shapes.
+chip_smoke.py checks the main path's full shapes.  The small configs of
+both backbones run through the port on the card against the CPU's plain
+path by chip_smoke's own phases, so the two agree on what they check.
 """
+
+import importlib
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -223,3 +229,24 @@ def test_stem_kernel_bf16_tolerance(dev, shape):
     k = stem.stem_block1_cuda(*args).float()
     want = stem.stem_block1_plain(*args).float()
     assert float((k - want).abs().max()) <= _bf16_ulp(float(want.abs().max()))
+
+
+def _chip_smoke():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "resnet101"])
+def test_small_config_detect_matches_cpu(dev, backbone):
+    """chip_smoke's small-config phase: float32 detections on the card
+    (kernels) equal to the CPU's (plain versions) on the same weights;
+    ResNet-101 with live residual branches and random FrozenBN leaves."""
+    _chip_smoke().phase_small_parity(dev, backbone)
+
+
+@pytest.mark.parametrize("backbone", ["vgg16", "resnet101"])
+def test_small_config_training_step_matches_cpu(dev, backbone):
+    """chip_smoke's small-config training phase: one training forward with
+    the CPU's sampling draws (decisions and losses), then one step
+    (gradients and updated parameters) on the card against the CPU."""
+    _chip_smoke().phase_train_parity(dev, backbone)

@@ -19,18 +19,23 @@ Package map (mirrors ``trcnn``):
                                plain PyTorch versions on CPU tensors.
 - :mod:`trcnn_torch.targets` — anchor and proposal target assignment, with
                                the sampling uniforms as arguments.
-- :mod:`trcnn_torch.models`  — VGG-16 trunk (frozen stem), RPN head, RoI
-                               head (dropout in training), losses and the
-                               Faster R-CNN composite (detect, postprocess,
-                               losses).
+- :mod:`trcnn_torch.models`  — VGG-16 trunk (frozen stem) and its fc RoI
+                               head (dropout in training), the
+                               ResNet-101-C4 trunk and res5 RoI head
+                               (FrozenBN), RPN head, losses and the Faster
+                               R-CNN composite (detect, postprocess,
+                               losses) over either backbone.
 - :mod:`trcnn_torch.train`   — the Caffe-order MomentumSGD, the train step
                                and the trainer with checkpoint/resume.
 - :mod:`trcnn_torch.config`  — the port's copy of the config classes.
 - :mod:`trcnn_torch.convert` — flax parameter tree and optax momentum trace
                                <-> ``state_dict`` and momentum buffers.
+- :mod:`trcnn_torch.convert_resnet` — ResNet-101 npz import (torchvision
+                               and chainercv naming) into a state_dict.
 - :mod:`trcnn_torch.entry`   — the full VOC detect graph (``entry``) and
                                training step (``train_entry``) on one
-                               device, the card unless asked for the CPU.
+                               device, the card unless asked for the CPU,
+                               for either backbone.
 """
 
 __version__ = "0.2.0"

@@ -154,7 +154,7 @@ class FasterRCNNConfig:
     """Top-level config."""
 
     num_classes: int = len(VOC_CLASSES)
-    backbone: str = "vgg16"  # or "resnet101" (not ported yet)
+    backbone: str = "vgg16"  # or "resnet101"
     head_hidden: int = 4096  # fc6/fc7 width; small in unit tests
     rpn_channels: int = 512  # RPN 3x3 conv width
     head_dropout: float = 0.5  # fc6/fc7 dropout rate; 0.0 disables

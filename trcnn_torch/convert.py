@@ -6,9 +6,11 @@ The flax tree is taken as nested dicts of numpy arrays
 paths map one to one (``extractor/conv1_1/kernel`` <->
 ``extractor.conv1_1.weight``):
 
-- conv kernels HWIO <-> OIHW;
+- conv kernels HWIO <-> OIHW (ResNet-101's convolutions have no bias);
 - dense kernels (in, out) <-> ``nn.Linear`` weights (out, in);
-- biases as they are.
+- biases, and the FrozenBN leaves ``scale``/``bias``/``mean``/``var``
+  (``extractor/res3/block1/bn1/scale`` <-> ``extractor.res3.block1.bn1.scale``),
+  as they are.
 
 fc6's rows keep the NHWC (h, w, c) flatten order, which is also the port's
 flatten order, and the RPN's channel order is kept as it is.
@@ -25,6 +27,10 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+
+# leaves that keep their name and layout: biases and the FrozenBN leaves
+_AS_IS = ("bias", "scale", "mean", "var")
 
 
 def _walk(tree: Mapping[str, Any], prefix=()):
@@ -50,8 +56,8 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
             out[key + ".weight"] = torch.tensor(arr)
-        elif path[-1] == "bias":
-            out[key + ".bias"] = torch.tensor(arr)
+        elif path[-1] in _AS_IS:
+            out[key + "." + path[-1]] = torch.tensor(arr)
         else:
             raise ValueError(f"unexpected leaf {'/'.join(path)}")
     return out
@@ -66,8 +72,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         if leaf == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
             name = "kernel"
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf in _AS_IS:
+            name = leaf
         else:
             raise ValueError(f"unexpected state_dict entry {key}")
         node = root

@@ -2,11 +2,13 @@
 (counterpart of ``__graft_entry__.entry``) and the training step
 (counterpart of ``benchmarks/bench_train.py``).
 
-``entry(device)`` builds the VGG-16 VOC model (608x1024 canvas, im_info
-(600, 1000, 1.6)) with random weights, casts it for bf16 inference, and
-returns ``(fn, (model, images, im_info))`` with one uint8 canvas; weights
-and canvas are made from seed 0.  ``fn(model, images, im_info)`` runs
-detect + postprocess.
+``entry(device)`` builds the VOC model (608x1024 canvas, im_info (600,
+1000, 1.6)) with random weights, casts it for bf16 inference, and returns
+``(fn, (model, images, im_info))`` with one uint8 canvas; weights and
+canvas are made from seed 0.  ``fn(model, images, im_info)`` runs detect +
+postprocess.  ``backbone`` picks VGG-16 (the default) or "resnet101"
+(``voc_config().replace(backbone=...)``), as the JAX scripts' ``--backbone``
+switch does.
 
 ``train_entry(device)`` builds the same model for training (float32 master
 parameters, compute in ``dtype``) with its Caffe-order optimizer, and a
@@ -32,17 +34,23 @@ from trcnn_torch.models.faster_rcnn import (Detections, cast_params_for_inferenc
 from trcnn_torch.train.step import TrainState, train_step
 
 
-def _setup(device, cfg: Optional[FasterRCNNConfig]):
+def _setup(device, cfg: Optional[FasterRCNNConfig], backbone: Optional[str]):
+    """(device, config, im_info row): the VOC config with ``backbone``
+    ("vgg16" when None), or ``cfg``, whose backbone ``backbone`` must then
+    name if given."""
     device = torch.device(device)
     if cfg is None:
-        return device, voc_config(), (600.0, 1000.0, 1.6)
+        return (device, voc_config().replace(backbone=backbone or "vgg16"),
+                (600.0, 1000.0, 1.6))
+    if backbone not in (None, cfg.backbone):
+        raise ValueError(f"backbone {backbone!r} differs from the config's {cfg.backbone!r}")
     return device, cfg, (float(cfg.image.pad_h - 4), float(cfg.image.pad_w - 4), 1.0)
 
 
 def entry(device="cuda", cfg: Optional[FasterRCNNConfig] = None,
-          dtype: torch.dtype = torch.bfloat16
+          dtype: torch.dtype = torch.bfloat16, backbone: Optional[str] = None
           ) -> Tuple[Callable[..., Detections], tuple]:
-    device, cfg, im_info_row = _setup(device, cfg)
+    device, cfg, im_info_row = _setup(device, cfg, backbone)
     gen = torch.Generator(device=device).manual_seed(0)
     model = make_model(cfg, dtype=dtype, device=device).init(gen)
     cast_params_for_inference(model, dtype).eval()
@@ -64,12 +72,13 @@ TRAIN_GT_LABELS = (3, 7)
 
 
 def train_entry(device="cuda", cfg: Optional[FasterRCNNConfig] = None,
-                dtype: torch.dtype = torch.bfloat16, batch_size: int = 8
+                dtype: torch.dtype = torch.bfloat16, batch_size: int = 8,
+                backbone: Optional[str] = None
                 ) -> Tuple[Callable[..., Dict[str, torch.Tensor]], tuple]:
-    """The training step at the VOC config (or ``cfg``), weights and uint8
-    canvases from seed 0; the gt boxes are scaled into a small config's
-    canvas."""
-    device, cfg, im_info_row = _setup(device, cfg)
+    """The training step at the VOC config with ``backbone`` (or ``cfg``),
+    weights and uint8 canvases from seed 0; the gt boxes are scaled into a
+    small config's canvas."""
+    device, cfg, im_info_row = _setup(device, cfg, backbone)
     gen = torch.Generator(device=device).manual_seed(0)
     model = make_model(cfg, dtype=dtype, device=device).init(gen)
     images = torch.randint(0, 256, (batch_size, cfg.image.pad_h, cfg.image.pad_w, 3),

@@ -6,8 +6,12 @@ VGG-16 trunk, RPN, the batched proposal layer, RoI max-pool and the fc head.
 class-specific deltas, clip, grouped per-class NMS, and map back to
 original-image coordinates.  ``FasterRCNN.losses`` is the training forward:
 anchor targets, the RPN losses, proposals (train capacities) on the
-detached RPN outputs, proposal targets and the head losses.  Only the
-VGG-16 backbone and max pooling are ported so far.
+detached RPN outputs, proposal targets and the head losses.
+
+``cfg.backbone`` picks the trunk and the RoI head, as
+``trcnn/models/faster_rcnn.py:88-104`` does: "vgg16" (VGG-16 trunk, 7x7
+RoI pool, fc6/fc7 head) or "resnet101" (ResNet-101-C4 trunk, 14x14 RoI
+pool, res5 head).  Both pool with max pooling; RoIAlign is not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 
 from trcnn_torch.config import FasterRCNNConfig
 from trcnn_torch.models.losses import masked_mean, smooth_l1, softmax_ce
+from trcnn_torch.models.resnet import Bottleneck, FrozenBatchNorm, ResNet101C4, ResNetC5Head
 from trcnn_torch.models.roi_head import VGG16RoIHead
 from trcnn_torch.models.rpn import RPNHead
 from trcnn_torch.models.vgg16 import VGG16
@@ -50,24 +55,31 @@ class Detections(NamedTuple):
 
 
 class FasterRCNN(nn.Module):
-    """VGG-16 trunk + RPN + RoI head.  ``dtype`` is the compute dtype; the
+    """Trunk + RPN + RoI head.  ``dtype`` is the compute dtype; the
     parameters, the RPN outputs and the cls_score/bbox_pred layers stay
     float32."""
 
     def __init__(self, cfg: FasterRCNNConfig = FasterRCNNConfig(),
                  dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
-        if cfg.backbone != "vgg16":
-            raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
         if cfg.roi.mode != "max":
             raise NotImplementedError(f"RoI mode {cfg.roi.mode!r} is not ported yet")
         self.cfg = cfg
         self.dtype = dtype
         p = cfg.roi.output_size
-        self.extractor = VGG16(dtype, device)
-        self.rpn = RPNHead(512, cfg.anchors.num_anchors, cfg.rpn_channels, dtype, device)
-        self.head = VGG16RoIHead(p * p * 512, cfg.num_classes, cfg.head_hidden,
-                                 dtype, device, dropout_rate=cfg.head_dropout)
+        if cfg.backbone == "vgg16":
+            extractor, feat_channels, self.pool_size = VGG16(dtype, device), 512, p
+            head = VGG16RoIHead(p * p * 512, cfg.num_classes, cfg.head_hidden, dtype, device,
+                                dropout_rate=cfg.head_dropout)
+        elif cfg.backbone == "resnet101":
+            extractor, feat_channels, self.pool_size = ResNet101C4(dtype, device), 1024, 2 * p
+            head = ResNetC5Head(cfg.num_classes, dtype, device)
+        else:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}")
+        self.extractor = extractor
+        self.rpn = RPNHead(feat_channels, cfg.anchors.num_anchors, cfg.rpn_channels, dtype,
+                           device)
+        self.head = head
         self.register_buffer("pixel_means", torch.tensor(
             cfg.image.pixel_means_bgr, dtype=torch.float32, device=device),
             persistent=False)
@@ -76,22 +88,30 @@ class FasterRCNN(nn.Module):
     def init(self, generator: torch.Generator) -> "FasterRCNN":
         """Seeded init mirroring flax's: lecun_normal (truncated normal,
         fan-in scaled) conv and dense weights, zero biases, normal(0.01) for
-        the RPN convs and cls_score, normal(0.001) for bbox_pred."""
+        the RPN convs and cls_score, normal(0.001) for bbox_pred; for
+        ResNet-101, zero bottleneck conv3 kernels and identity FrozenBNs
+        (scale 1, bias 0, mean 0, var 1)."""
         gaussian = {self.rpn.rpn_conv: 0.01, self.rpn.rpn_cls_score: 0.01,
                     self.rpn.rpn_bbox_pred: 0.01, self.head.cls_score: 0.01,
                     self.head.bbox_pred: 0.001}
+        zero = {m.conv3 for m in self.modules() if isinstance(m, Bottleneck)}
         for m in self.modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.reset_parameters()
             if not isinstance(m, (nn.Conv2d, nn.Linear)):
                 continue
             if m in gaussian:
                 m.weight.normal_(0.0, gaussian[m], generator=generator)
+            elif m in zero:
+                m.weight.zero_()
             else:
                 fan_in = m.weight[0].numel()
                 # flax's truncated_normal(-2, 2) rescaled to unit variance
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         return self
 
     def _prepare(self, images: torch.Tensor, im_info: torch.Tensor) -> torch.Tensor:
@@ -110,11 +130,12 @@ class FasterRCNN(nn.Module):
     def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor,
                     generator: Optional[torch.Generator] = None):
         """feat (B, fH, fW, C), rois (B, R, 4) -> (cls_score (B, R, K),
-        bbox_pred (B, R, 4K)); all images' crops go through the head as one
-        (B*R) batch.  ``generator`` draws the head's dropout masks (training);
-        None runs the deterministic head."""
+        bbox_pred (B, R, 4K)); all images' crops, pooled at ``pool_size``,
+        go through the head as one (B*R) batch, in the layout the pool
+        writes.  ``generator`` draws the VGG head's dropout masks
+        (training); None runs the deterministic head."""
         b, r = rois.shape[:2]
-        pooled = roi_max_pool(feat, rois.contiguous(), self.cfg.roi.output_size,
+        pooled = roi_max_pool(feat, rois.contiguous(), self.pool_size,
                               self.cfg.roi.spatial_scale)
         cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]),
                                          generator)
@@ -265,7 +286,8 @@ def cast_params_for_inference(model: FasterRCNN, dtype: torch.dtype) -> FasterRC
     Every layer casts its weight to the compute dtype at use, so the cast
     leaves the activations bit-identical while removing a per-call cast.
     Biases stay float32, and so do the float32 islands cls_score and
-    bbox_pred.  Training must not use this.
+    bbox_pred and ResNet-101's FrozenBN leaves (their fold runs in float32
+    before it is cast).  Training must not use this.
     """
     if dtype == torch.float32:
         return model

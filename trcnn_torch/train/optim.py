@@ -12,10 +12,16 @@ rate after the momentum and differs there, so this module writes its own
 update.  The per-parameter rules:
 
 - biases (ndim <= 1) train at 2x the learning rate and take no decay;
-- conv1_1-conv2_2 are frozen: their update is zero.  Their trace still
-  follows the JAX package's optax chain (weight decay enters it, the update
-  is masked after the trace), so that a trace crosses to the port and back
-  (``trcnn_torch/convert.py``) and stays equal step for step;
+- frozen parameters take a zero update: VGG-16's conv1_1-conv2_2;
+  ResNet-101's conv1, bn1, res2 and every FrozenBN leaf (a path component
+  holding "bn").  Their trace still follows the JAX package's optax chain
+  (weight decay enters it, the update is masked after the trace), so that
+  a trace crosses to the port and back (``trcnn_torch/convert.py``) and
+  stays equal step for step.  One difference is deliberate: JAX computes
+  gradients for the FrozenBN leaves of res3-res5 and adds them to their
+  trace; the port computes none (the leaves take no gradient), so that
+  never-applied trace stays the momentum-decayed one while the leaves
+  themselves stay bit-identical;
 - the optional global-norm clip scales every gradient first.
 
 The schedule is piecewise constant (x ``lr_decay_factor`` from
@@ -33,13 +39,19 @@ import torch
 from torch import nn
 
 from trcnn_torch.config import OptimConfig
-from trcnn_torch.models.vgg16 import FROZEN_PREFIXES
+from trcnn_torch.models import resnet, vgg16
 
 
-def is_frozen(name: str) -> bool:
-    """True for a parameter of conv1_1-conv2_2 (``extractor.conv1_1.weight``)."""
+def is_frozen(name: str, backbone: str = "vgg16") -> bool:
+    """True for a frozen parameter (``trcnn/train/optim.py:35-56``): under
+    ``extractor``, one of the backbone's frozen prefixes (VGG-16
+    ``extractor.conv1_1.weight``; ResNet-101 conv1, bn1, res2), and for
+    ResNet-101 every parameter with "bn" in a path component."""
     parts = name.split(".")
-    return parts[0] == "extractor" and parts[1].startswith(FROZEN_PREFIXES)
+    prefixes = vgg16.FROZEN_PREFIXES if backbone == "vgg16" else resnet.FROZEN_PREFIXES
+    if parts[0] == "extractor" and parts[1].startswith(prefixes):
+        return True
+    return backbone != "vgg16" and any("bn" in p for p in parts)
 
 
 def learning_rate(cfg: OptimConfig, step: int) -> float:
@@ -65,8 +77,10 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 class CaffeSGD:
     """Caffe-order MomentumSGD over a model's parameters, keyed by name."""
 
-    def __init__(self, model: nn.Module, cfg: OptimConfig = OptimConfig()):
+    def __init__(self, model: nn.Module, cfg: OptimConfig = OptimConfig(),
+                 backbone: str = "vgg16"):
         self.cfg = cfg
+        self.frozen = {name for name, _ in model.named_parameters() if is_frozen(name, backbone)}
         self.params: Dict[str, nn.Parameter] = dict(model.named_parameters())
         self.momentum: Dict[str, torch.Tensor] = {
             name: torch.zeros_like(p) for name, p in self.params.items()}
@@ -89,7 +103,7 @@ class CaffeSGD:
                 u = g * (-2.0 * lr)
             v = self.momentum[name]
             v.mul_(cfg.momentum).add_(u)
-            if not is_frozen(name):
+            if name not in self.frozen:
                 p.add_(v)
 
     def state_dict(self) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -40,7 +40,7 @@ class TrainState:
 
     @classmethod
     def create(cls, model: FasterRCNN) -> "TrainState":
-        return cls(model, CaffeSGD(model, model.cfg.optim))
+        return cls(model, CaffeSGD(model, model.cfg.optim, model.cfg.backbone))
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
