@@ -10,7 +10,8 @@ Phases, one line each, any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (K1 batched over 8 images, an empty and a short image
    among them; K2 and K4 also at the ResNet-101-C4 pool, P=14 on a
-   1024-channel map), with both times (CUDA events around back-to-back
+   1024-channel map, and on the portrait map, 64x38; K3 also on the
+   portrait canvas, 1024x608, at a batch of 8 in f32 and bf16), with both times (CUDA events around back-to-back
    calls after warm-up), the least time the card could take
    (``bound_ms``, from this run's inputs) and the kernel's share of it,
    and, for K3, the cuDNN composite's time beside the kernel's;
@@ -33,9 +34,29 @@ Phases, one line each, any failure raises and exits non-zero:
    ResNet-101's K2 and K4 are also timed on the inputs its batch of 8 and
    its train step give them (P=14);
 6. per backbone, one float32 request and one float32 train step whose
-   kernel inputs are captured and replayed through the plain versions.
+   kernel inputs are captured and replayed through the plain versions;
+7. the ResNet-101 train step with the res3-res5 FrozenBN leaves'
+   gradients (through FrozenBatchNorm's written-out backward, and through
+   plain autograd ops) and without them, in turns; one VGG-16 train step
+   on a 4800x1440 canvas, whose 300x90 map takes K4's large-map variant
+   (a counted path, its kernel calls replayed through the plain versions);
+8. the data path at full width, through the CLIs' own code: a seeded VGG-16
+   exported with ``export_chainer_npz`` and read back bit-equal through
+   ``import_weights``; the evaluate CLI on ``SyntheticDetection(n=64)`` at
+   batch 8 (both canvas buckets, 608x1024 and 1024x608) from that npz in
+   float32 and bfloat16 with ``--write_dets``, and the seeded ResNet-101
+   on 16 images, each with img/s, the loader's wait against the detect
+   time per batch, and the device's busy share; the train CLI (4 steps at
+   batch 8, the evaluator hook at step 4), its checkpoint read back by
+   ``evaluate --checkpoint_dir``.  In each evaluation's dtype and in the
+   train CLI, the first kernel call of each input shape is recorded and
+   replayed through the plain versions; the forward CLI
+   on one image file when the machine has an image library.  Each CLI run
+   is a counted path (K1 exactly twice per detect call), and the CLIs'
+   output goes to ``build/chip_smoke/``.
 
-The next-to-last line is the kernels' JSON record, the last line
+Before the kernels' JSON record comes the card's name and power limit
+again; the next-to-last line is the record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -47,6 +68,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,13 +79,24 @@ KERNELS = {
     "roi_pool": ("trcnn_torch/csrc/roi_pool.cu", "trcnn/ops/roi_pool_pallas.py:451"),
     "roi_pool_bwd": ("trcnn_torch/csrc/roi_pool_bwd.cu", "trcnn/ops/roi_pool_pallas.py:571"),
     "stem": ("trcnn_torch/csrc/stem.cu", "trcnn/ops/stem_pallas.py:226"),
+    # K4's variant for maps over 255 cells a side (the JAX model takes its
+    # XLA pool there, trcnn/models/faster_rcnn.py:157-167)
+    "roi_pool_bwd_large": ("trcnn_torch/csrc/roi_pool_bwd.cu",
+                           "trcnn/ops/roi_pool_pallas.py:571"),
 }
 # the kernels each main path launches; it must launch each of them and no
 # other (K3 is VGG-16's conv1 block only)
 REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "vgg16 train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
             "resnet101 detect": ("nms", "roi_pool"),
-            "resnet101 train": ("nms", "roi_pool", "roi_pool_bwd")}
+            "resnet101 train": ("nms", "roi_pool", "roi_pool_bwd"),
+            "vgg16 train 4800x1440": ("nms", "roi_pool", "roi_pool_bwd_large", "stem"),
+            "vgg16 evaluate float32": ("nms", "roi_pool", "stem"),
+            "vgg16 evaluate bfloat16": ("nms", "roi_pool", "stem"),
+            "resnet101 evaluate": ("nms", "roi_pool"),
+            "vgg16 train CLI": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            "vgg16 evaluate checkpoint": ("nms", "roi_pool", "stem"),
+            "vgg16 forward CLI": ("nms", "roi_pool", "stem")}
 BACKBONES = ("vgg16", "resnet101")
 NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
@@ -286,6 +319,18 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def stem_limit(p):
+    """K3's tolerance against its plain output p: float32 within
+    STEM_F32_RTOL of p's largest magnitude, bfloat16 within one bf16 ulp of
+    it."""
+    import torch
+
+    scale = float(p.float().abs().max())
+    if p.dtype == torch.float32:
+        return STEM_F32_RTOL * scale
+    return float(bf16_ulp(torch.tensor(scale)))
+
+
 def check_stem(args, what, exact=False):
     """exact: bit-equal (integer-valued case, sums exact in any order).
     float32: within STEM_F32_RTOL of the output's largest magnitude, TF32
@@ -306,11 +351,11 @@ def check_stem(args, what, exact=False):
         phase(f"  K3 {what}: {'bit-equal' if ok else 'NOT bit-equal'}, "
               f"max abs err {float(err.max()):.3e}")
     elif k.dtype == torch.float32:
-        ok = float(err.max()) <= STEM_F32_RTOL * scale
+        ok = float(err.max()) <= stem_limit(p)
         phase(f"  K3 {what}: max abs err {float(err.max()):.3e} "
               f"(limit {STEM_F32_RTOL} x {scale:.3e})")
     else:
-        limit = float(bf16_ulp(torch.tensor(scale)))
+        limit = stem_limit(p)
         ok = float(err.max()) <= limit
         own = err / bf16_ulp(torch.maximum(k.float().abs(), p.float().abs()))
         phase(f"  K3 {what}: max abs err {float(err.max()):.3e} (limit one bf16 "
@@ -323,6 +368,18 @@ def check_stem(args, what, exact=False):
 
 
 # ---------------------------------------------------------------- K4 cases
+
+
+def bwd_limit(p):
+    """K4's tolerance against its plain output p with real-valued g: float32
+    within ROI_BWD_F32_RTOL of the largest |dfeat|, bfloat16 within one bf16
+    ulp of it (the atomics add in another order)."""
+    import torch
+
+    scale = float(p.float().abs().max())
+    if p.dtype == torch.float32:
+        return ROI_BWD_F32_RTOL * scale
+    return float(bf16_ulp(torch.tensor(scale)))
 
 
 def check_roi_bwd(feat, rois, g, what, exact):
@@ -343,8 +400,7 @@ def check_roi_bwd(feat, rois, g, what, exact):
         ok = torch.equal(bits(k), bits(p))
         phase(f"  K4 {what}: {'bit-equal' if ok else 'NOT bit-equal'}, max abs err {err:.3e}")
     else:
-        limit = (ROI_BWD_F32_RTOL * scale if feat.dtype == torch.float32
-                 else float(bf16_ulp(torch.tensor(scale))))
+        limit = bwd_limit(p)
         ok = err <= limit
         phase(f"  K4 {what}: max abs err {err:.3e} (limit {limit:.3e} at scale {scale:.3e})")
     if not ok:
@@ -495,6 +551,18 @@ def phase_kernels(dev):
     ties_t = torch.from_numpy(ties).to(dev, torch.bfloat16)
     k4_rows.append(roi_row("K4", "(8,128) P=7 C=512 bf16, tie-heavy map", ties_t, rois_t, g_t))
     del feat_t, g_t, ties_t
+    # the portrait map, 64 x 38 (the 1024 x 608 canvas), at the training
+    # shape: K2 bit-equal, K4 bit-equal on integer g and within rounding on
+    # real g, in f32 and bf16
+    feat, rois = roi_case(8, 128, 34, fh=64, fw=38)
+    rois_t = torch.from_numpy(rois).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        feat_t = torch.from_numpy(feat).to(dev, dt)
+        err = max(err, check_roi_equal(feat_t, rois_t, f"B=8x128 64x38 map {dt}"))
+        for what, g, exact in (("integer g", g_int, True), ("real g", g_real, False)):
+            err4 = max(err4, check_roi_bwd(feat_t, rois_t, torch.from_numpy(g).to(dev, dt),
+                                           f"B=8x128 64x38 map {dt} {what}", exact))
+    del feat_t
 
     # the ResNet-101-C4 pool: P=14 on a (B, 38, 64, 1024) map, bf16; bit-equal
     # (K4: integer g, on a real and a tie-heavy map) and real g at B=2, timed
@@ -524,20 +592,59 @@ def phase_kernels(dev):
     k4_rows.append(roi_row("K4", "(8,128) P=14 C=1024 bf16 (R101)", feat_t, rois_t, g_t, 14))
     del feat_t, g_t
     torch.cuda.empty_cache()
+    # K4's large-map variant: 300 x 90 and 90 x 300 maps (a 4800 x 1440
+    # canvas and its transpose), over 255 cells a side; bit-equal on integer
+    # g (a tie-heavy map too) in f32 and bf16, real g within rounding, timed
+    # at B=8 x 128 RoIs, 7x7 bins, 512 channels
+    err_l, large_rows = 0.0, []
+    for fh, fw in ((300, 90), (90, 300)):
+        feat, rois = roi_case(2, 128, 50 + fh, fh=fh, fw=fw)
+        rng = np.random.default_rng(51)
+        rois_t = torch.from_numpy(rois).to(dev)
+        g_int = rng.integers(-4, 5, (2, 128, 7, 7, 512)).astype(np.float32)
+        ties = rng.integers(0, 3, feat.shape).astype(np.float32)
+        for dt in (torch.float32, torch.bfloat16):
+            if not roi_pool._bwd_plan(fh, fw, 4 if dt == torch.float32 else 2).large:
+                raise AssertionError(f"a {fh} x {fw} map did not take K4's large-map variant")
+            for what, f, g, exact in (
+                    ("integer g", feat, g_int, True), ("integer g, tie-heavy map", ties, g_int, True),
+                    ("real g", feat, rng.standard_normal(g_int.shape).astype(np.float32), False)):
+                err_l = max(err_l, check_roi_bwd(
+                    torch.from_numpy(f).to(dev, dt), rois_t, torch.from_numpy(g).to(dev, dt),
+                    f"large map B=2x128 {fh}x{fw} {dt} {what}", exact))
+        feat, rois = roi_case(8, 128, 52 + fh, fh=fh, fw=fw)
+        feat_t = torch.from_numpy(feat).to(dev, torch.bfloat16)
+        g_t = torch.from_numpy(rng.standard_normal((8, 128, 7, 7, 512)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        large_rows.append(roi_row("K4 large", f"(8,128) P=7 C=512 bf16 {fh}x{fw} map", feat_t,
+                                  torch.from_numpy(rois).to(dev), g_t))
+        del feat_t, g_t
+        torch.cuda.empty_cache()
+
     main = ("ms", "plain_ms", "bound_ms", "bound_by")
     rec["roi_pool"] = dict(max_abs_err=err, library_ms=None, shapes=k2_rows,
                            **{k: k2_rows[0][k] for k in main})
     rec["roi_pool_bwd"] = dict(max_abs_err=err4, library_ms=None, shapes=k4_rows,
                                **{k: k4_rows[0][k] for k in main})
+    rec["roi_pool_bwd_large"] = dict(max_abs_err=err_l, library_ms=None, shapes=large_rows,
+                                     **{k: large_rows[0][k] for k in main})
 
     # K3: the full canvas, integer-valued (exact) and real-valued: one image
-    # in f32 and bf16 (a request), a batch of 8 in bf16 (detect b=8, train)
+    # in f32 and bf16 (a request), a batch of 8 in bf16 (detect b=8, train);
+    # the portrait canvas (1024 x 608: a width that is no multiple of the
+    # 64-wide tiles) at a batch of 8 in f32 and bf16 (the evaluate CLI)
     err = 0.0
     for integer in (True, False):
+        kind = "integer" if integer else "real"
+        case = stem_case((8, 1024, 608, 3), 22, integer=integer)
+        for dt in (torch.float32, torch.bfloat16):
+            argsp = [torch.from_numpy(a).to(dev, dt) for a in case]
+            err = max(err, check_stem(argsp, f"(8,1024,608,3) {dt} {kind} (portrait)",
+                                      exact=integer))
         args8 = [torch.from_numpy(a).to(dev, torch.bfloat16)
                  for a in stem_case((8, 608, 1024, 3), 21, integer=integer)]
         err = max(err, check_stem(args8, f"(8,608,1024,3) {torch.bfloat16} "
-                                         f"{'integer' if integer else 'real'}", exact=integer))
+                                         f"{kind}", exact=integer))
         case = stem_case((1, 608, 1024, 3), 20, integer=integer)
         for dt in (torch.float32, torch.bfloat16):
             args = [torch.from_numpy(a).to(dev, dt) for a in case]
@@ -545,24 +652,27 @@ def phase_kernels(dev):
                                             f"{'integer' if integer else 'real'}",
                                       exact=integer))
     # kernel and cuDNN composite (the plain version: conv, bias, ReLU, conv,
-    # bias, ReLU, pool) in turns at both shapes; the record keeps the batch's
+    # bias, ReLU, pool) in turns at each shape; the record keeps the batch's.
+    # The kernel must beat the composite on the landscape canvas; on the
+    # portrait canvas the comparison is printed
     shapes = []
-    for what, a in (("(1,608,1024,3) bf16", args), ("(8,608,1024,3) bf16", args8)):
+    for what, a in (("(1,608,1024,3) bf16", args), ("(8,608,1024,3) bf16", args8),
+                    ("(8,1024,608,3) bf16 (portrait)", argsp)):
         k1 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
         l1 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
         l2 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
         k2 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
         ms, lib_ms = statistics.median([k1, k2]), statistics.median([l1, l2])
-        hw = a[0].shape[0] * 608 * 1024
+        hw = a[0].shape[0] * a[0].shape[1] * a[0].shape[2]
         b3 = bound(nbytes(*a) + hw // 4 * 64 * 2, 2.0 * hw * 64 * (27 + 576), BF16_OPS)
         phase(f"  K3 time at {what}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), cuDNN "
               f"composite {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound {b3['bound_ms']:.4f} ms "
               f"({b3['bound_by']}); kernel {lib_ms / ms:.2f}x the composite's speed, "
               f"{b3['bound_ms'] / ms * 100:.1f}% of the bound")
         shapes.append(dict(shape=what, ms=ms, plain_ms=lib_ms, library_ms=lib_ms, **b3))
-        if ms >= lib_ms:
+        if ms >= lib_ms and "portrait" not in what:
             raise AssertionError(f"K3 is no faster than the cuDNN composite at {what}")
-    del args8
+    del args8, argsp
     rec["stem"] = dict(max_abs_err=err, shapes=shapes, **shapes[1])
     del rec["stem"]["shape"]
     return rec
@@ -822,7 +932,11 @@ def train_step_parity(cpu, gpu, args, uniforms, proposals, what) -> None:
     (ref, g_c, p_c), (got, g_g, p_g) = res
     worst = compare_losses(got, ref, what + " step")
     backbone = cpu.cfg.backbone
-    if g_c.keys() != g_g.keys() or any(is_frozen(k, backbone) for k in g_c):
+    # gradients reach the trained tensors and, on ResNet-101, the FrozenBN
+    # leaves of res3-res5 (never applied), and nothing of the frozen stem
+    stem = [k for k in g_c if is_frozen(k, backbone) and not (
+        "bn" in k and not k.startswith(("extractor.bn1", "extractor.res2")))]
+    if g_c.keys() != g_g.keys() or stem:
         raise AssertionError(f"{what} step: gradients reach other tensors on the card")
     ratios = {k: float((g_g[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
               for k, w in g_c.items()}
@@ -1103,10 +1217,18 @@ def phase_train(dev, backbone: str, rec):
     return launches
 
 
+def signature(args):
+    """A kernel call's input shapes, dtypes and other arguments."""
+    import torch
+
+    return tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a for a in args)
+
+
 @contextlib.contextmanager
-def recording(captured):
+def recording(captured, first_of_shape=False):
     """Wrap every kernel wrapper so that each call's inputs (cloned) and
-    output land in ``captured[name]``."""
+    output land in ``captured[name]``; with ``first_of_shape``, only the
+    first K2, K3 and K4 call of each input signature (every K1 call)."""
     import torch
 
     from trcnn_torch.ops import nms, roi_pool, stem
@@ -1114,14 +1236,17 @@ def recording(captured):
     targets = {"nms": (nms, "greedy_keep_cuda"), "roi_pool": (roi_pool, "roi_max_pool_cuda"),
                "roi_pool_bwd": (roi_pool, "roi_pool_backward_cuda"),
                "stem": (stem, "stem_block1_cuda")}
-    originals = {}
+    originals, seen = {}, set()
     for key, (mod, name) in targets.items():
         orig = originals[key] = getattr(mod, name)
 
         def wrapped(*args, _orig=orig, _key=key):
             out = _orig(*args)
-            captured.setdefault(_key, []).append(
-                ([a.clone() if torch.is_tensor(a) else a for a in args], out))
+            sig = (_key, signature(args))
+            if not first_of_shape or _key == "nms" or sig not in seen:
+                seen.add(sig)
+                captured.setdefault(_key, []).append(
+                    ([a.clone() if torch.is_tensor(a) else a for a in args], out))
             return out
 
         setattr(mod, name, wrapped)
@@ -1134,7 +1259,8 @@ def recording(captured):
 
 def replay(captured, what):
     """Each captured call through its plain version: K1 equal, K2 bit-equal,
-    K3 and K4 within their float32 tolerances."""
+    K3 and K4 within their tolerances in the call's dtype (``stem_limit``,
+    ``bwd_limit``)."""
     import torch
 
     from trcnn_torch.ops import nms, roi_pool, stem
@@ -1146,21 +1272,22 @@ def replay(captured, what):
     for args, out in captured.get("roi_pool", []):
         if not torch.equal(bits(out), bits(roi_pool.roi_max_pool_plain(*args))):
             raise AssertionError(f"K2 differs from plain on the {what}'s inputs")
-    for args, out in captured.get("stem", []):
-        p = stem.stem_block1_plain(*args)
-        err = float((out - p).abs().max())
-        if err > STEM_F32_RTOL * float(p.abs().max()):
-            raise AssertionError(f"K3 differs from plain on the {what}'s inputs: {err}")
-    worst = 0.0
-    for args, out in captured.get("roi_pool_bwd", []):
-        p = roi_pool.roi_pool_backward_plain(*args)
-        err = float((out - p).abs().max())
-        worst = max(worst, err / max(float(p.abs().max()), 1e-30))
-        if err > ROI_BWD_F32_RTOL * float(p.abs().max()):
-            raise AssertionError(f"K4 differs from plain on the {what}'s inputs: {err}")
-    phase(f"f32 {what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())};"
-          f" plain replay agrees" + (f" (K4 within {worst:.2e} of the largest |dfeat|)"
-                                     if "roi_pool_bwd" in captured else ""))
+    worst = {}
+    for key, plain, limit in (("stem", stem.stem_block1_plain, stem_limit),
+                              ("roi_pool_bwd", roi_pool.roi_pool_backward_plain, bwd_limit)):
+        for args, out in captured.get(key, []):
+            p = plain(*args)
+            err, lim = float((out.float() - p.float()).abs().max()), limit(p)
+            if err > lim:
+                raise AssertionError(f"{key} differs from plain on the {what}'s inputs "
+                                     f"{signature(args)[0]}: {err} > {lim}")
+            worst[key] = max(worst.get(key, 0.0), err / lim if lim else 0.0)
+    shapes = {k: sorted({str(signature(a)[0][0]) for a, _ in v}) for k, v in captured.items()
+              if k != "nms"}
+    phase(f"{what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())}; "
+          f"plain replay agrees (K1 equal, K2 bit-equal"
+          + "".join(f", {k} at most {w:.2f} of its limit" for k, w in worst.items())
+          + f"); feat shapes {shapes}")
 
 
 def path_kernel_rows(rec, call, what):
@@ -1210,7 +1337,7 @@ def phase_capture(dev, backbone: str):
     del model
     if set(captured) != set(REQUIRED[f"{backbone} detect"]):
         raise AssertionError(f"f32 {name} request reached {sorted(captured)}")
-    replay(captured, f"{name} request")
+    replay(captured, f"f32 {name} request")
 
     captured = {}
     with recording(captured):
@@ -1224,7 +1351,349 @@ def phase_capture(dev, backbone: str):
     pools = {args[-2] for key in ("roi_pool", "roi_pool_bwd") for args, _ in captured[key]}
     if pools != {14 if backbone == "resnet101" else 7}:
         raise AssertionError(f"f32 {name} train step pooled at {pools}")
-    replay(captured, f"{name} train step (RoI pool {pools.pop()})")
+    replay(captured, f"f32 {name} train step (RoI pool {pools.pop()})")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- data path
+
+
+def log_file(name, text):
+    """``text`` into build/chip_smoke/<name> (the CLIs' own output)."""
+    import os
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, name), "a") as f:
+        f.write(text)
+
+
+def quiet(fn, argv):
+    """A CLI's ``fn(argv)`` with its standard output kept in a log file."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = fn(argv)
+    log_file("cli.txt", f"$ {fn.__module__}.{fn.__name__} {' '.join(argv)}\n{text.getvalue()}")
+    return out
+
+
+def count_path(path, by_path, call):
+    """Launch counts set to 0 just before ``call()`` and read just after:
+    the path must launch exactly its kernels (``REQUIRED``)."""
+    import torch
+
+    from trcnn_torch import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    require_launches(path, launches)
+    by_path[path] = launches
+    return out, launches
+
+
+def busy_over(run):
+    """One call of ``run`` under torch.profiler: (the union of its kernel
+    intervals, the host wall time of the call), in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        raise AssertionError("the profiler saw no device time")
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return (busy + hi - lo) / 1e3, wall * 1e3
+
+
+def phase_weights(dev, tmp):
+    """A seeded VGG-16 (graded class biases, so that random weights make
+    detections) exported to a Chainer npz with the port's
+    ``export_chainer_npz`` and imported back through ``import_weights``:
+    bit-equal.  Returns the npz path and the state_dict."""
+    import os
+
+    import torch
+
+    from trcnn_torch.config import voc_config
+    from trcnn_torch.convert_chainer import export_chainer_npz
+    from trcnn_torch.models import make_model
+    from trcnn_torch.weights import import_weights
+
+    cfg = voc_config()
+    model = make_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(11))
+    with torch.no_grad():
+        model.head.cls_score.bias.copy_(torch.linspace(-3.0, 3.0, cfg.num_classes))
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    path = os.path.join(tmp, "VGG16_seeded.npz")
+    t0 = time.perf_counter()
+    export_chainer_npz(sd, path, cfg)
+    back = import_weights(path, cfg)
+    secs = time.perf_counter() - t0
+    bad = [k for k in sd if k not in back or not torch.equal(bits(back[k]), bits(sd[k]))]
+    if bad or back.keys() != sd.keys():
+        raise AssertionError(f"export -> import_weights changed {bad[:5]}")
+    phase(f"weights: seeded VGG-16 -> export_chainer_npz ({os.path.getsize(path) / 2**20:.0f} "
+          f"MiB) -> import_weights: {len(sd)} tensors bit-equal ({secs:.1f} s)")
+    return path, sd
+
+
+def print_eval(what, res, busy=None):
+    t = res["timing"]
+    nb = sum(t["batches"].values())
+    buckets = ", ".join(f"{h}x{w}: {n}" for (h, w), n in sorted(t["batches"].items()))
+    line = (f"  {what}: {res['images']} images in {nb} batches of 8 ({buckets}), mAP "
+            f"{res['mAP']:.4f}; {res['images'] / res['seconds']:.2f} img/s end to end; "
+            f"per batch: loader wait {t['wait_s'] / nb * 1e3:.2f} ms, detect "
+            f"{t['detect_s'] / nb * 1e3:.2f} ms")
+    if busy is not None:
+        # kernel time from the profiled pass, over this (unprofiled) pass's wall time: the
+        # profiler's own host work stretches the profiled pass several times over
+        line += (f"; device busy {busy[0]:.1f} ms of kernels, {busy[0] / res['seconds'] / 10:.1f}% "
+                 f"of this pass's {res['seconds'] * 1e3:.1f} ms (profiled pass {busy[1]:.1f} ms)")
+    phase(line)
+
+
+def eval_path(path, argv, by_path):
+    """The evaluate CLI over ``argv`` as a counted path: K1 exactly twice per
+    detect call (one per batch), a finite mAP."""
+    from trcnn_torch.cli import evaluate
+
+    res, launches = count_path(path, by_path, lambda: quiet(evaluate.run, argv))
+    nb = sum(res["timing"]["batches"].values())
+    if launches["nms"] != 2 * nb:
+        raise AssertionError(f"{path}: K1 launched {launches['nms']} times in {nb} detect calls")
+    if not np.isfinite(res["mAP"]):
+        raise AssertionError(f"{path}: mAP {res['mAP']}")
+    return res
+
+
+def phase_eval(dev, by_path, npz, tmp):
+    """The evaluate CLI on SyntheticDetection(n=64) (h 360-600, w 480-800:
+    both canvas buckets, 608x1024 and 1024x608) at batch 8: VGG-16 from the
+    exported npz in float32 and bfloat16, ResNet-101 (seeded) on 16 images.
+    Per run: a profiled pass (the device's busy share over the evaluation),
+    then the counted, timed pass.  Before them, one pass in each dtype
+    and one of ResNet-101 record the first call of each kernel input shape
+    and replay it through the plain version (K3's f32 and bf16 kernels on
+    both canvases, K2 at batch 8 on both maps, every K1 call; the first 16
+    images hold one portrait image, so ResNet-101 sees both maps too)."""
+    import os
+
+    from trcnn_torch.cli import evaluate
+
+    common = ["--dataset", "synthetic", "--batch_size", "8", "--device", "cuda"]
+    vgg = common + ["--pretrained_model", npz]
+    r101 = common + ["--backbone", "resnet101", "--limit", "16"]
+    img = evaluate.make_config("vgg16").image
+    canvases = {(img.pad_h, img.pad_w), (img.pad_w, img.pad_h)}
+    for what, argv in (("VGG-16 float32", vgg + ["--dtype", "float32"]),
+                       ("VGG-16 bfloat16", vgg + ["--dtype", "bfloat16"]),
+                       ("ResNet-101-C4 float32", r101)):
+        captured = {}
+        with recording(captured, first_of_shape=True):
+            quiet(evaluate.run, argv)
+        key = "stem" if what.startswith("VGG") else "roi_pool"
+        maps = {tuple(a[0].shape[1:3]) for a, _ in captured[key]}
+        if key == "roi_pool":
+            maps = {(16 * h, 16 * w) for h, w in maps}
+        if maps != canvases:
+            raise AssertionError(f"the {what} evaluation gave {key} only {maps}")
+        replay(captured, f"{what} evaluation (first call of each K2 / K3 shape)")
+        del captured
+
+    for dtype in ("float32", "bfloat16"):
+        argv = vgg + ["--dtype", dtype, "--write_dets", os.path.join(tmp, f"dets_{dtype}")]
+        busy = busy_over(lambda: quiet(evaluate.run, argv))
+        res = eval_path(f"vgg16 evaluate {dtype}", argv, by_path)
+        if len(res["files"]) != 20 or not all(os.path.exists(f) for f in res["files"]):
+            raise AssertionError(f"--write_dets wrote {len(res['files'])} files")
+        n_lines = sum(1 for f in res["files"] for _ in open(f))
+        print_eval(f"VGG-16 {dtype}, {n_lines} devkit lines in 20 files", res, busy)
+        if len(res["timing"]["batches"]) != 2:
+            raise AssertionError(f"one canvas bucket only: {res['timing']['batches']}")
+    busy = busy_over(lambda: quiet(evaluate.run, r101))
+    print_eval("ResNet-101-C4 float32 (seeded)",
+               eval_path("resnet101 evaluate", r101, by_path), busy)
+
+
+def phase_train_cli(dev, by_path, npz, sd, tmp):
+    """The train CLI from the exported npz: 4 steps at batch 8 on the
+    synthetic set with the evaluator hook at step 4 (16 held-out images);
+    trained parameters moved, frozen ones not; the checkpoint read back by
+    the evaluate CLI's --checkpoint_dir.  The run records the first call of
+    each kernel input shape (K4 on every map its batches give it) and
+    replays it through the plain version."""
+    import os
+
+    import torch
+
+    from trcnn_torch.cli import evaluate, train
+    from trcnn_torch.train.optim import is_frozen
+
+    out = os.path.join(tmp, "train")
+    argv = ["--dataset", "synthetic", "--batch_size", "8", "--iters", "4", "--eval_every", "4",
+            "--eval_limit", "16", "--log_every", "1", "--out", out, "--pretrained_model", npz,
+            "--device", "cuda"]
+    captured = {}
+    t0 = time.perf_counter()
+    with recording(captured, first_of_shape=True):
+        trainer, launches = count_path("vgg16 train CLI", by_path,
+                                       lambda: quiet(train.run, argv))
+    secs = time.perf_counter() - t0
+    replay(captured, "f32 train CLI (first call of each kernel input shape)")
+    del captured
+    nb = sum(trainer.evaluator.timing["batches"].values())
+    if trainer.state.step != 4 or launches["nms"] != 4 + 2 * nb:
+        raise AssertionError(f"train CLI: step {trainer.state.step}, K1 {launches['nms']}")
+    for k, p in trainer.state.model.named_parameters():
+        moved = not torch.equal(p.detach().cpu(), sd[k])
+        if moved == is_frozen(k):
+            raise AssertionError(f"train CLI: {k} {'moved' if moved else 'did not move'}")
+    phase(f"train CLI: 4 steps at batch 8 + the eval hook ({nb} batches) in {secs:.1f} s "
+          f"(kernel inputs recorded); "
+          f"launches {launches}; frozen parameters unchanged, trained ones moved")
+    res = eval_path("vgg16 evaluate checkpoint", ["--dataset", "synthetic", "--checkpoint_dir", out,
+                                                  "--limit", "16", "--device", "cuda"], by_path)
+    trained = trainer.state.model.state_dict()
+    if res["checkpoint_step"] != 4 or any(not torch.equal(v, trained[k])
+                                          for k, v in res["model"].state_dict().items()):
+        raise AssertionError("evaluate --checkpoint_dir did not load the trained model")
+    print_eval("evaluate --checkpoint_dir (step 4)", res)
+    del trainer
+
+
+def phase_forward_cli(dev, by_path, npz, tmp):
+    """The forward CLI on one image file, if the machine has an image
+    library to write and read one."""
+    import contextlib
+    import io
+    import os
+
+    from trcnn_torch.cli import forward
+    from trcnn_torch.data import SyntheticDetection
+    from trcnn_torch.data.image import image_library, read_image, write_detections
+
+    lib = image_library()
+    if lib is None:
+        phase("forward CLI: not run: this machine has no image library (cv2 or PIL) to "
+              "write or decode an image file")
+        return
+    img = SyntheticDetection(n=1, seed=5).get_example(0)["image"]
+    img_fn, out_fn = os.path.join(tmp, "image.png"), os.path.join(tmp, "result.png")
+    write_detections(img, [], [], img_fn)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc, launches = count_path("vgg16 forward CLI", by_path, lambda: forward.main(
+            ["--img_fn", img_fn, "--out_fn", out_fn, "--pretrained_model", npz,
+             "--score_thresh", "0.0", "--device", "cuda"]))
+    lines = text.getvalue().splitlines()
+    log_file("forward_cli.txt", text.getvalue())
+    if rc != 0 or launches["nms"] != 4 or read_image(out_fn).shape != img.shape:
+        raise AssertionError(f"forward CLI: rc {rc}, launches {launches}, output {lines[-1:]}")
+    phase(f"forward CLI ({lib}): {lines[0]}; {lines[1]}; wrote {os.path.basename(out_fn)}")
+
+
+def phase_large_map(dev, by_path):
+    """One VGG-16 train step at batch 1 on a 4800 x 1440 canvas: its 300 x
+    90 map takes K4's large-map variant on the main path.  Its kernel calls
+    are recorded and replayed through the plain versions (K4's large-map
+    variant within one bf16 ulp of the largest |dfeat|)."""
+    import dataclasses
+
+    import torch
+
+    from trcnn_torch.config import voc_config
+    from trcnn_torch.entry import train_entry
+
+    cfg = voc_config()
+    cfg = cfg.replace(image=dataclasses.replace(cfg.image, pad_h=4800, pad_w=1440))
+    step_fn, (state, batch) = train_entry(dev, cfg=cfg, batch_size=1)
+    captured = {}
+    with recording(captured):
+        m, launches = count_path("vgg16 train 4800x1440", by_path, lambda: step_fn(state, batch))
+    vals = check_step(m, 0)
+    if [tuple(a[0].shape[1:3]) for a, _ in captured["roi_pool_bwd"]] != [(300, 90)]:
+        raise AssertionError("the 4800x1440 step did not give K4 one 300x90 map")
+    replay(captured, "bf16 train step on a 4800x1440 canvas")
+    del captured
+    phase(f"train step on a 4800x1440 canvas (300x90 map): launches {launches}; "
+          f"loss {vals['loss']:.5g}, grad_norm {vals['grad_norm']:.5g}")
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def autograd_frozen_bn(self, x):
+    """FrozenBatchNorm's forward as plain autograd ops (the fold, the casts,
+    the multiply and the add each a node), its design before the written-out
+    backward: the same values, for the R1 turns only."""
+    import torch
+
+    inv = self.scale / torch.sqrt(self.var + self.eps)
+    shift = self.bias - self.mean * inv
+    return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+
+
+def phase_r1_cost(dev):
+    """The ResNet-101 train step at batch 8 with the res3-res5 FrozenBN
+    leaves' gradients through FrozenBatchNorm's written-out backward (this
+    tree), through plain autograd ops (``autograd_frozen_bn``), and without
+    them (the leaves set to take none, as before R1), in turns: without,
+    written-out, autograd, autograd, written-out, without; 4 steps each."""
+    import torch
+
+    from trcnn_torch.entry import train_entry
+    from trcnn_torch.models import resnet
+    from trcnn_torch.train.optim import is_frozen
+
+    step_fn, (state, batch) = train_entry(dev, backbone="resnet101")
+    leaves = [p for k, p in state.model.named_parameters()
+              if is_frozen(k, "resnet101") and "bn" in k
+              and not k.startswith(("extractor.bn1", "extractor.res2"))]
+    step_fn(state, batch)
+    written_out = resnet.FrozenBatchNorm.forward
+    arms = {"without": (False, written_out), "written-out": (True, written_out),
+            "autograd": (True, autograd_frozen_bn)}
+    ms = {arm: [] for arm in arms}
+    try:
+        for arm in ("without", "written-out", "autograd", "autograd", "written-out", "without"):
+            with_grads, forward = arms[arm]
+            resnet.FrozenBatchNorm.forward = forward
+            for p in leaves:
+                p.requires_grad_(with_grads)
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                step_fn(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[arm].append(statistics.median(times))
+    finally:
+        resnet.FrozenBatchNorm.forward = written_out
+    phase(f"R1: ResNet-101 train step b=8, median ms in turns, the {len(leaves)} FrozenBN "
+          f"leaves' gradients through the written-out backward "
+          f"{', '.join(f'{t:.2f}' for t in ms['written-out'])}; through autograd's ops "
+          f"{', '.join(f'{t:.2f}' for t in ms['autograd'])}; without them "
+          f"{', '.join(f'{t:.2f}' for t in ms['without'])}")
+    del state, batch
     torch.cuda.empty_cache()
 
 
@@ -1252,11 +1721,21 @@ def main() -> int:
         by_path[f"{backbone} train"] = phase_train(dev, backbone, rec)
     for backbone in BACKBONES:
         phase_capture(dev, backbone)
+    phase_r1_cost(dev)
+    phase_large_map(dev, by_path)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("data path: VOC config, seeded weights, the CLIs' own code on the card")
+        npz, sd = phase_weights(dev, tmp)
+        phase_eval(dev, by_path, npz, tmp)
+        phase_train_cli(dev, by_path, npz, sd, tmp)
+        phase_forward_cli(dev, by_path, npz, tmp)
+    phase(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
                     replaces=KERNELS[name][1],
                     launches=sum(p[name] for p in by_path.values()),
                     launches_by_path={k: p[name] for k, p in by_path.items()}, **rec[name])
-               for name in _build.KERNELS]
+               for name in _build.COUNTERS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,13 +40,13 @@ OUT = Path(__file__).resolve().parent / "build" / "k4_split"
 ATOMIC = "atomicAdd(slab + slab_index<V>(w, v * V + k, cc), gv[k]);"
 WALK = "const int bh = he - hs, n = (we - ws) * bh;"
 GLOAD = "load_lanes<T, V>(gp, gv);"
-ITEM = "      accumulate_bin<T, V>(ranges + rr * 4 * P,"
+ITEM = "      accumulate_bin<T, V, kGlobal>(ranges + rr * 4 * P,"
 # each variant: the substitutions of the one before it and one more
 STEPS = (("shipped", None),
          ("plain adds", (ATOMIC, "slab[slab_index<V>(w, v * V + k, cc)] += gv[k];")),
          ("no walk", (WALK, "const int bh = he - hs, n = 1;")),
          ("no g", (GLOAD, "for (int k = 0; k < V; ++k) gv[k] = 1.0f;")),
-         ("frame", (ITEM, "      if (R < 0) accumulate_bin<T, V>(ranges + rr * 4 * P,")))
+         ("frame", (ITEM, "      if (R < 0) accumulate_bin<T, V, kGlobal>(ranges + rr * 4 * P,")))
 
 
 def build(nvcc: str, flags) -> dict:
@@ -93,7 +93,8 @@ def main() -> int:
     rois_t = torch.from_numpy(rois).to(dev)
     g_t = torch.from_numpy(g).to(dev, torch.bfloat16)
     b, h, w, c = feat_t.shape
-    cc, rows, smem = roi_pool._bwd_plan(h, w, feat_t.element_size())
+    large, cc, rows, smem = roi_pool._bwd_plan(h, w, feat_t.element_size())
+    assert not large
     out = torch.empty_like(feat_t)
     stream = _build.stream_of(dev)
 

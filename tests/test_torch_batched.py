@@ -20,6 +20,7 @@ from trcnn.ops.nms import nms_oracle_numpy
 from trcnn.ops.proposal import proposal_layer as jax_proposal_layer
 from trcnn_torch.models.faster_rcnn import RawDetections, postprocess
 from trcnn_torch.ops import nms, proposal
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 T = torch.from_numpy
 

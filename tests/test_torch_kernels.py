@@ -187,6 +187,44 @@ def test_roi_pool_backward_kernel(dev, dtype, ties, b, r, h, w, c, p):
     assert torch.equal(_bits(x.grad), _bits(roi_pool.roi_pool_backward_plain(feat, rois_t, g_int, p)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("b,r,h,w,c", [(2, 61, 300, 90, 512), (2, 61, 90, 300, 512),
+                                       (1, 23, 300, 90, 24), (1, 23, 257, 40, 3)])
+def test_roi_pool_backward_large_map_kernel(dev, dtype, ties, b, r, h, w, c):
+    """K4's large-map variant (maps over 255 cells on a side: feat walked
+    from global memory, 16-bit cell coordinates): bit-equal to the plain
+    version with integer-valued gradients, on a tie-heavy map too, tall and
+    wide, in several row bands (the 300 x 90 maps); ragged channel
+    counts (24, 3) and an unaligned base take one channel an item.  Within
+    rounding on real-valued g."""
+    plan = roi_pool._bwd_plan(h, w, torch.empty((), dtype=dtype).element_size())
+    assert plan.large and (h * w != 27000 or -(-h // plan.band_rows) > 1)
+    rng = np.random.default_rng(r + c + h)
+    x1 = rng.uniform(-60, w * 16 + 30, (b, r))
+    y1 = rng.uniform(-60, h * 16 + 30, (b, r))
+    rois = np.stack([x1, y1, x1 + rng.uniform(0, w * 12, (b, r)),
+                     y1 + rng.uniform(0, h * 12, (b, r))], -1).astype(np.float32)
+    rois[:, 0] = (0, 0, w * 16 - 1, h * 16 - 1)                  # the whole map
+    feat = (rng.integers(0, 3, (b, h, w, c)) if ties else rng.standard_normal((b, h, w, c)))
+    feat = torch.tensor(feat, dtype=dtype, device=dev)
+    rois_t = torch.tensor(rois, device=dev)
+    g_int = torch.tensor(rng.integers(-4, 5, (b, r, 7, 7, c)), dtype=dtype, device=dev)
+    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g_int)
+    for f, gi in ((feat, g_int), (_unaligned(feat), _unaligned(g_int))):
+        before = dict(_build.launch_counts)
+        k = roi_pool.roi_pool_backward_cuda(f, rois_t, gi)
+        assert _build.launch_counts["roi_pool_bwd_large"] == before["roi_pool_bwd_large"] + 1
+        assert _build.launch_counts["roi_pool_bwd"] == before["roi_pool_bwd"]
+        assert k.dtype == dtype and torch.equal(_bits(k), _bits(want))
+    g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=dtype, device=dev)
+    k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g).float()
+    want = roi_pool.roi_pool_backward_plain(feat, rois_t, g).float()
+    scale = float(want.abs().max())
+    limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    assert float((k - want).abs().max()) <= limit
+
+
 def _stem_args(rng, shape, integer, dev, dtype):
     if integer:
         vals = (rng.integers(-8, 9, shape), rng.integers(-2, 3, (64, 3, 3, 3)),

@@ -30,6 +30,7 @@ from trcnn.ops.stem_pallas import stem_block1_reference
 from trcnn.ops.topk import masked_topk_payload as jax_topk
 from trcnn_torch.models import make_model
 from trcnn_torch.ops import anchors, boxes, nms, proposal, roi_pool, stem, topk
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 T = torch.from_numpy
 

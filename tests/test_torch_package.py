@@ -4,6 +4,7 @@ the entry point runs its graph on the CPU at a small config, the entry
 points default to the card, and a tensor on any device other than the CPU
 reaches a kernel or raises."""
 
+import argparse
 import dataclasses
 import inspect
 import os
@@ -15,22 +16,44 @@ import torch
 
 from trcnn import config as jax_config
 from trcnn_torch import _build, config
+from trcnn_torch.cli import add_common_flags, evaluate, forward, train
 from trcnn_torch.entry import entry, train_entry
+from trcnn_torch.eval import Evaluator
 from trcnn_torch.models import make_model
 from trcnn_torch.ops import nms, roi_pool, stem
 from trcnn_torch.train import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# torch threads per test process: the suite runs several worker processes on
+# one machine's cores, and more threads per worker only oversubscribe them
+TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    """TORCH_THREADS torch threads for a module's tests, the setting
+    restored after; the port's other test modules import it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(before)
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, the data layer and the CLIs included,
+    imports without loading JAX, flax, optax or the JAX package, and
+    without cv2 or PIL (the image libraries load only when a file is read
+    or written)."""
     code = (
         "import importlib, pkgutil, sys, trcnn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(trcnn_torch.__path__, 'trcnn_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 23, names\n"
-        "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'trcnn')]\n"
+        "assert len(names) >= 44, names\n"
+        "for n in ('cli.forward', 'cli.evaluate', 'cli.train', 'data.loader', 'eval.evaluator',\n"
+        "          'convert_chainer', 'convert_caffemodel', 'weights'):\n"
+        "    assert 'trcnn_torch.' + n in names, n\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'trcnn', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -47,8 +70,13 @@ def test_config_copy_equals_the_jax_package(make):
 
 
 def test_entry_points_default_to_the_card():
-    for fn in (make_model, entry, train_entry, Trainer.__init__):
+    for fn in (make_model, entry, train_entry, Trainer.__init__, Evaluator.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    for cli in (forward, evaluate, train):          # --device defaults to the card
+        ap = argparse.ArgumentParser()
+        add_common_flags(ap)
+        assert ap.parse_args([]).device == "cuda"
+        assert cli.add_common_flags is add_common_flags
     if not torch.cuda.is_available():      # nothing falls back to the CPU
         with pytest.raises((AssertionError, RuntimeError)):
             make_model(_tiny_cfg())

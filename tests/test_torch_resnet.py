@@ -11,8 +11,13 @@ largest magnitude was measured for the features, the RPN and the head, so
 1e-4 leaves room for other summation orders.
 
 The JAX side compiles two graphs, once for the file: detect + postprocess,
-and the trunk, the RPN and the head on fixed RoIs.
+and the trunk, the RPN and the head on fixed RoIs.  ``_fixture`` itself
+(a jitted R101 init and three forwards) is built once per test run for
+this file and tests/test_torch_resnet_train.py (:func:`shared_fixture`).
 """
+
+import fcntl
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +26,9 @@ import pytest
 import torch
 from flax import linen as fnn
 
+from tests.test_cross_impl_resnet import _cfg as _fixture_cfg
 from tests.test_cross_impl_resnet import _fixture
+from trcnn.models import make_model as jax_make_model
 from trcnn.models import resnet as jax_resnet
 from trcnn.models.faster_rcnn import cast_params_for_inference as jax_cast
 from trcnn.models.faster_rcnn import postprocess as jax_postprocess
@@ -30,6 +37,7 @@ from trcnn_torch.convert import flax_to_state_dict, state_dict_to_flax
 from trcnn_torch.entry import entry
 from trcnn_torch.models import cast_params_for_inference, make_model, postprocess
 from trcnn_torch.models import resnet
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 T = torch.from_numpy
 FIXED_ROIS = np.stack([np.asarray([10.0, 10.0, 80.0, 90.0]) + 3 * i
@@ -41,9 +49,49 @@ def _rel_err(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-9)
 
 
+def shared_fixture(tmp_path_factory):
+    """tests/test_cross_impl_resnet.py's ``_fixture()``, built once per test
+    run: the first caller builds it and saves its arrays where every
+    worker process of the run can read them (the run's shared temporary
+    directory), the others wait for that and load them."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    path = base / "r101_fixture.npz"
+    with open(base / "r101_fixture.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            cfg, model, params, images, im_info = _fixture()
+            flat = {"/".join(k): v for k, v in _leaves(params)}
+            tmp = base / f"r101_fixture.{os.getpid()}.npz"
+            np.savez(tmp, images=images, im_info=im_info, **{"p/" + k: v for k, v in flat.items()})
+            os.replace(tmp, path)
+            return cfg, model, params, images, im_info
+    params = {}
+    with np.load(path) as f:
+        for k in f.files:
+            if k.startswith("p/"):
+                *mods, leaf = k[2:].split("/")
+                node = params
+                for m in mods:
+                    node = node.setdefault(m, {})
+                node[leaf] = f[k]
+        images, im_info = f["images"], f["im_info"]
+    cfg = _fixture_cfg()
+    return cfg, jax_make_model(cfg, dtype=jnp.float32), params, images, im_info
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 @pytest.fixture(scope="module")
-def runs():
-    cfg, model, params, images, im_info = _fixture()
+def runs(tmp_path_factory):
+    cfg, model, params, images, im_info = shared_fixture(tmp_path_factory)
 
     @jax.jit
     def detect(p, x, info):
@@ -134,8 +182,50 @@ def test_frozen_batch_norm_matches_flax(dtype):
     bn = resnet.FrozenBatchNorm(24, device="cpu")
     bn.load_state_dict({k.split(".", 1)[1]: v for k, v in flax_to_state_dict(tree).items()})
     tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-    got = bn(T(x).to(tdt).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float().numpy()
+    with torch.no_grad():
+        got = bn(T(x).to(tdt).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_frozen_batch_norm_backward_matches_jax_vjp(dtype):
+    """FrozenBatchNorm's written-out backward against ``jax.vjp`` of flax's
+    FrozenBatchNorm: dx bit-equal in float32 and bf16 (g times the rounded
+    scale, as both autograds give it).  The four float32 leaves' gradients
+    within 1e-5 of each leaf's largest: in float32 against JAX's; in bf16
+    against the chain rule in float64 on the bf16 products g * x, since
+    JAX sums them in bf16 on the CPU (3% of the largest away here) where
+    the port sums in float32."""
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((2, 5, 6, 24)) * 3).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jm = jax_resnet.FrozenBatchNorm(dtype=dtype)
+    tree = {"params": {"bn": jax.tree.map(np.asarray,
+                                          jm.init(jax.random.PRNGKey(0), x))["params"]}}
+    _randomise(tree["params"], rng)
+    jx, jg = jnp.asarray(x, dtype), jnp.asarray(g, dtype)
+    _, vjp = jax.vjp(lambda p, xx: jm.apply({"params": p}, xx), tree["params"]["bn"], jx)
+    jleaves, jdx = vjp(jg)
+    bn = resnet.FrozenBatchNorm(24, device="cpu")
+    bn.load_state_dict({k.split(".", 1)[1]: v for k, v in flax_to_state_dict(tree).items()})
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    xt = T(x).to(tdt).permute(0, 3, 1, 2).detach().requires_grad_(True)
+    bn(xt).backward(T(g).to(tdt).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(xt.grad.permute(0, 2, 3, 1).float().numpy(),
+                                  np.asarray(jdx, np.float32))
+    if dtype == jnp.float32:
+        want = {k: np.asarray(v, np.float64) for k, v in jleaves.items()}
+    else:
+        p = {k: np.asarray(v, np.float64) for k, v in tree["params"]["bn"].items()}
+        gx = np.asarray(jg * jx, np.float64).sum((0, 1, 2))
+        d_shift = np.asarray(jg, np.float64).sum((0, 1, 2))
+        std = np.sqrt(p["var"] + 1e-5)
+        d_inv = gx - p["mean"] * d_shift
+        want = {"scale": d_inv / std, "bias": d_shift, "mean": -p["scale"] / std * d_shift,
+                "var": -d_inv * p["scale"] / (2 * std ** 3)}
+    for name, w in want.items():
+        got = getattr(bn, name).grad.numpy()
+        assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max(), name
 
 
 def test_max_pool_pads_with_minus_infinity():
@@ -174,7 +264,8 @@ def test_spatial_mean_rounds_as_jnp_mean():
 def test_init_matches_the_flax_tree(runs):
     """The port's parameters are the flax tree's leaves, name for name and
     shape for shape; the seeded init zeroes every conv3, makes each
-    FrozenBN the identity, and gives no convolution a bias."""
+    FrozenBN the identity (its leaves take gradients, as JAX's do), and
+    gives no convolution a bias."""
     cfg, params = runs["cfg"], runs["params"]
     model = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     sd = model.state_dict()
@@ -188,7 +279,7 @@ def test_init_matches_the_flax_tree(runs):
         leaf = name.rsplit(".", 1)
         if "bn" in leaf[0].rsplit(".", 1)[-1]:
             n_bn += 1
-            assert not p.requires_grad and torch.all(p == fill[leaf[1]]), name
+            assert p.requires_grad and torch.all(p == fill[leaf[1]]), name   # differentiated
         elif leaf[0].endswith("conv3"):
             assert not p.any(), name
         elif leaf[1] == "weight" and p.dim() == 4 and not name.startswith("rpn"):

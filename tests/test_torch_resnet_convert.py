@@ -19,6 +19,7 @@ from trcnn_torch.config import voc_config
 from trcnn_torch.convert import flax_to_state_dict
 from trcnn_torch.convert_resnet import detect_source, import_resnet101_npz
 from trcnn_torch.models import make_model
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 
 def _chainercv(sd, rng):

@@ -1,7 +1,8 @@
 """The port's ResNet-101-C4 training step against the JAX package, on the CPU.
 
 Weights and the first image are tests/test_cross_impl_resnet.py's
-``_fixture`` (live conv3 kernels and random FrozenBN leaves); the second
+``_fixture`` (live conv3 kernels and random FrozenBN leaves; built once
+per run with tests/test_torch_resnet.py, ``shared_fixture``); the second
 image is the first mirrored, and the gt boxes, im_info rows and sampling
 capacities are those of tests/test_cross_impl_train.py.  JAX's sampling
 draws are replayed outside its graph and handed to the port, so every
@@ -23,12 +24,17 @@ by up to 3.8e-3 in the same tensor (median 1.2e-4), as float32 differs
 from float64, since last-bit differences through 101 layers with random
 FrozenBN scales move a few ReLU and pooling decisions.
 
-One difference is deliberate (trcnn_torch/train/optim.py): JAX computes
-gradients for the FrozenBN leaves of res3-res5 and adds them to their
-momentum trace before masking the update; the port computes none.  The
-trace test excludes exactly those leaves by name and holds the port's
-trace there to the momentum-decayed one.
+The FrozenBN leaves of res3-res5 take gradients on both sides: JAX
+differentiates them and masks their update after the momentum trace; the
+port does the same, so their gradients count in the global norm
+(``grad_norm``) and in the clip, and their trace matches JAX's.  Measured:
+the port's ``grad_norm`` within 8.6e-8 of JAX's (relative); the 372
+FrozenBN leaves' gradients within 2.4e-3 of each leaf's largest JAX
+gradient (res4.block17.bn2.bias), median 7.7e-5, held to the trained
+tensors' tolerances.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +43,7 @@ import optax
 import pytest
 import torch
 
-from tests.test_cross_impl_resnet import _fixture
+from tests.test_cross_impl_resnet import _cfg as _fixture_cfg
 from tests.test_cross_impl_train import _derive_uniforms, _sampling_rng
 from trcnn.config import ProposalConfig, ProposalTargetConfig
 from trcnn.models import make_model as jax_make_model
@@ -46,19 +52,23 @@ from trcnn_torch.convert import flax_to_state_dict
 from trcnn_torch.entry import train_entry
 from trcnn_torch.models import make_model
 from trcnn_torch.models.faster_rcnn import UNIFORM_KEYS
-from trcnn_torch.train import TrainState, learning_rate, train_step
+from trcnn_torch.train import CaffeSGD, TrainState, learning_rate, train_step
 from trcnn_torch.train.optim import is_frozen
 from trcnn_torch.train.step import BATCH_KEYS
+from tests.test_torch_resnet import shared_fixture  # noqa: E402
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 T = torch.from_numpy
 B = 2
 TRACE = 4          # index of optax.trace in make_optimizer's chain
 GRAD_RTOL = 1e-2
+# grad_norm, relative to JAX's global norm: measured 8.6e-8; leaving out the
+# FrozenBN leaves' gradients, as the port did before, gives 2.0e-6
+NORM_RTOL = 1e-6
 
 
 def _cfg():
-    cfg = _fixture()[0]
-    return cfg.replace(
+    return _fixture_cfg().replace(
         proposals=ProposalConfig(pre_nms_topk_train=512, post_nms_topk_train=64,
                                  pre_nms_topk_test=512, post_nms_topk_test=48),
         proposal_targets=ProposalTargetConfig(rois_per_image=16))
@@ -83,14 +93,14 @@ def _flat(tree):
 
 
 @pytest.fixture(scope="module")
-def run():
-    """JAX: losses and gradients from one value_and_grad, then the optax
-    update from a random momentum trace.  The port: one train_step from
-    the same parameters, trace and sampling draws."""
+def run(tmp_path_factory):
+    """JAX: losses and gradients from one value_and_grad, their global
+    norm, then the optax update from a random momentum trace.  The port:
+    one train_step from the same parameters, trace and sampling draws."""
     cfg = _cfg()
-    params = _fixture()[2]
+    _, _, params, images, _ = shared_fixture(tmp_path_factory)
     model = jax_make_model(cfg, dtype=jnp.float32)
-    batch = _batch(_fixture()[3])
+    batch = _batch(images)
     jbatch = [jnp.asarray(batch[k]) for k in BATCH_KEYS]
     drop, samp = jax.random.split(jax.random.PRNGKey(11))
 
@@ -122,7 +132,9 @@ def run():
                           uniforms=uniforms)
     return dict(
         cfg=cfg, raw_params=params, params=_flat(params), trace=_flat(trace),
+        raw_trace=trace, raw_grads=grads,
         jax_metrics={k: float(v) for k, v in jmetrics.items()},
+        jax_norm=float(optax.global_norm(grads)),
         jax_grads=_flat(grads),
         jax_params=_flat(jax.tree.map(np.asarray, optax.apply_updates(params, upd))),
         jax_trace=_flat(jax.tree.map(np.asarray, new_opt[TRACE].trace)),
@@ -133,11 +145,16 @@ def run():
         new_trace={k: v.numpy() for k, v in state.optimizer.momentum.items()})
 
 
-def _untraced_bn(name):
-    """A FrozenBN leaf below res2, which JAX differentiates but the port
-    does not (the stem's BN leaves get no gradient on either side)."""
-    return (is_frozen(name, "resnet101") and "bn" in name
-            and not name.startswith(("extractor.bn1", "extractor.res2")))
+def _stem(name):
+    """A parameter of conv1, bn1 or res2, which run without autograd in the
+    port: no gradient there, and a zero one in JAX (its stop_gradient)."""
+    return name.startswith(("extractor.conv1", "extractor.bn1", "extractor.res2"))
+
+
+def _frozen_bn(name):
+    """A FrozenBN leaf of res3-res5: frozen, but differentiated on both
+    sides."""
+    return is_frozen(name, "resnet101") and "bn" in name and not _stem(name)
 
 
 def test_is_frozen_matches_the_jax_mask(run):
@@ -164,40 +181,70 @@ def test_losses_match_jax(run):
     assert p["rpn_bbox_loss"] > 0 and p["bbox_loss"] > 0
 
 
-def test_gradients_match_jax(run):
-    """Every trained tensor's gradient within GRAD_RTOL of its largest JAX
-    gradient; the frozen ones get none (JAX's are zero, or, for the
-    FrozenBN leaves of res3-res5, never applied)."""
-    grads, want = run["grads"], run["jax_grads"]
-    assert grads.keys() == want.keys()
+def _ratios(run, names):
+    """Each tensor's largest gradient difference over its largest JAX
+    gradient."""
     ratios = {}
-    for name, w in want.items():
-        if is_frozen(name, "resnet101"):
-            assert grads[name] is None, name
-            assert _untraced_bn(name) or not w.any(), name
-            continue
+    for name in names:
+        w = run["jax_grads"][name]
         scale = np.abs(w).max()
         assert scale > 0, name
-        ratios[name] = float(np.abs(grads[name] - w).max() / scale)
+        ratios[name] = float(np.abs(run["grads"][name] - w).max() / scale)
+    return ratios
+
+
+def _hold(ratios, what):
     worst = max(ratios, key=ratios.get)
-    print(f"worst gradient ratio {ratios[worst]:.4e} in {worst}; median "
+    print(f"{what}: worst gradient ratio {ratios[worst]:.4e} in {worst}; median "
           f"{np.median(list(ratios.values())):.2e} over {len(ratios)} tensors")
-    assert len(ratios) == 530 - (4 * 104 + 11)
     assert np.median(list(ratios.values())) <= 1e-3
     for name, r in ratios.items():
         assert r <= GRAD_RTOL, (name, r)
 
 
+def test_gradients_match_jax(run):
+    """Every trained tensor's gradient within GRAD_RTOL of its largest JAX
+    gradient; the stem (conv1, bn1, res2) gets none (JAX's are zero)."""
+    grads, want = run["grads"], run["jax_grads"]
+    assert grads.keys() == want.keys()
+    for name, w in want.items():
+        if _stem(name):
+            assert grads[name] is None and not w.any(), name
+    trained = [k for k in want if not is_frozen(k, "resnet101")]
+    assert len(trained) == 530 - (4 * 104 + 11)
+    _hold(_ratios(run, trained), "trained tensors")
+
+
+def test_frozen_bn_gradients_match_jax(run):
+    """The FrozenBN leaves of res3-res5 (scale, bias, mean, var) get
+    gradients, each within GRAD_RTOL of its largest JAX gradient, as the
+    trained tensors do."""
+    leaves = [k for k in run["jax_grads"] if _frozen_bn(k)]
+    assert len(leaves) == 4 * (104 - 11)               # all but bn1 and res2's ten
+    assert all(run["grads"][k] is not None for k in leaves)
+    _hold(_ratios(run, leaves), "FrozenBN leaves")
+
+
+def test_grad_norm_matches_jax(run):
+    """The logged grad_norm is the global norm over every gradient, the
+    FrozenBN leaves' included, as optax's is: within NORM_RTOL of JAX's,
+    and equal to the norm of the port's own gradients."""
+    got, want = run["metrics"]["grad_norm"], run["jax_norm"]
+    print(f"grad_norm {got:.8g}, JAX {want:.8g}, relative {abs(got - want) / want:.2e}")
+    assert abs(got - want) <= NORM_RTOL * want
+    own = np.sqrt(sum(np.square(g.astype(np.float64)).sum()
+                      for g in run["grads"].values() if g is not None))
+    assert abs(got - own) <= NORM_RTOL * own
+
+
 def test_update_matches_jax(run):
     """One Caffe-order update: the trained parameters moved and the frozen
-    ones bit-unchanged on both sides; parameters and momentum trace within
-    1e-5 of each tensor's largest magnitude plus what the gradient
-    tolerance allows (lr x GRAD_RTOL x the largest gradient, 2x the lr for
-    a bias), except the trace of the FrozenBN leaves of res3-res5, which in
-    the port is the old one times the momentum."""
+    ones bit-unchanged on both sides; parameters and momentum trace, the
+    FrozenBN leaves' trace included, within 1e-5 of each tensor's largest
+    magnitude plus what the gradient tolerance allows (lr x GRAD_RTOL x
+    the largest gradient, 2x the lr for a bias)."""
     cfg = run["cfg"]
     lr = learning_rate(cfg.optim, 0)
-    m = np.float32(cfg.optim.momentum)
     for name, w in run["jax_params"].items():
         got, before = run["new_params"][name], run["params"][name]
         g_max = np.abs(run["jax_grads"][name]).max()
@@ -209,10 +256,48 @@ def test_update_matches_jax(run):
             assert not np.array_equal(got, before), name
             assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max() + slack, name
         tw, tp = run["jax_trace"][name], run["new_trace"][name]
-        if _untraced_bn(name):
-            np.testing.assert_array_equal(tp, m * run["trace"][name], err_msg=name)
-            continue
         assert np.abs(tp - tw).max() <= 1e-5 * np.abs(tw).max() + slack, name
+
+
+def test_clipped_update_matches_optax(run):
+    """One Caffe-order update with the global-norm clip at half the norm,
+    from the port's gradients and its grad_norm, against optax's chain
+    (clip first) on JAX's gradients and the same trace: the clip scales
+    every gradient, the FrozenBN leaves' included, by the same factor;
+    parameters and trace within the tolerances of test_update_matches_jax
+    (which the clip only shrinks), the frozen parameters bit-unchanged."""
+    cfg = run["cfg"]
+    ocfg = dataclasses.replace(cfg.optim, clip_grad_norm=0.5 * run["jax_norm"])
+    params = run["raw_params"]
+    tx = make_optimizer(params, ocfg, "resnet101")
+    opt = list(tx.init(params))
+    opt[TRACE] = opt[TRACE]._replace(trace=run["raw_trace"])
+    upd, new_opt = tx.update(run["raw_grads"], tuple(opt), params)
+    want = _flat(jax.tree.map(np.asarray, optax.apply_updates(params, upd)))
+    want_trace = _flat(jax.tree.map(np.asarray, new_opt[TRACE].trace))
+
+    model = make_model(cfg, device="cpu")
+    model.load_state_dict({k: T(v.copy()) for k, v in run["params"].items()})
+    sgd = CaffeSGD(model, ocfg, "resnet101")
+    sgd.load_state_dict({"momentum": {k: T(v.copy()) for k, v in run["trace"].items()}})
+    for k, p in model.named_parameters():
+        g = run["grads"][k]
+        p.grad = None if g is None else T(g.copy())
+    sgd.step(0, torch.tensor(run["metrics"]["grad_norm"]))
+    lr = learning_rate(ocfg, 0)
+    for name, w in want.items():
+        got, before = model.state_dict()[name].numpy(), run["params"][name]
+        slack = (1 + (w.ndim <= 1)) * lr * GRAD_RTOL * np.abs(run["jax_grads"][name]).max()
+        if is_frozen(name, "resnet101"):
+            np.testing.assert_array_equal(got, before, err_msg=name)
+            np.testing.assert_array_equal(w, before, err_msg=name)
+        else:
+            assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max() + slack, name
+        tw, tp = want_trace[name], sgd.momentum[name].numpy()
+        assert np.abs(tp - tw).max() <= 1e-5 * np.abs(tw).max() + slack, name
+    # the clip was active: the update is not the unclipped one
+    name = "head.cls_score.weight"
+    assert not np.allclose(model.state_dict()[name].numpy(), run["jax_params"][name])
 
 
 def test_train_entry_resnet101_on_cpu():

@@ -21,6 +21,7 @@ import torch
 from trcnn.ops.roi_pool import roi_max_pool as jax_roi_max_pool
 from trcnn.ops.roi_pool import roi_max_pool_oracle_numpy, roi_pool_backward_oracle_numpy
 from trcnn_torch.ops import roi_pool
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 T = torch.from_numpy
 _TORCH = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -158,22 +159,31 @@ def test_p14_bit_equal_to_jax_and_oracle(plateaus):
 
 
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
-@pytest.mark.parametrize("h,w,one_band", [(38, 64, True), (50, 84, True), (100, 90, False)],
-                         ids=["vgg_r101", "coco", "tall"])
-def test_bwd_plan_fits_and_tiles_the_map(h, w, itemsize, one_band):
-    """K4's plan: its shared memory (the slice, the slab and the RoI chunk)
-    fits one block's 227 KB, the slice width holds whole 16-byte vectors,
-    and the bands of equal height cover every row of the map once: one band
-    at the VGG and R101 map (38 x 64, whatever the channel count) and the
-    COCO map (50 x 84), several where the map is taller; a map over 255
-    cells on a side has no plan."""
-    cc, rows, smem = roi_pool._bwd_plan(h, w, itemsize)
+@pytest.mark.parametrize("h,w,one_band,large", [(38, 64, True, False), (50, 84, True, False),
+                                                (100, 90, False, False), (300, 90, False, True),
+                                                (90, 300, False, True)],
+                         ids=["vgg_r101", "coco", "tall", "large_tall", "large_wide"])
+def test_bwd_plan_fits_and_tiles_the_map(h, w, itemsize, one_band, large):
+    """K4's plan: its shared memory (the slice, unless the map is walked
+    from global memory, the slab and the RoI chunk) fits one block's 227 KB,
+    the slice width holds whole 16-byte vectors, and the bands of equal
+    height cover every row of the map once: one band at the VGG and R101
+    map (38 x 64, whatever the channel count) and the COCO map (50 x 84),
+    several where the map is taller.  A map over 255 cells on a side takes
+    the large-map variant; every map of at most 65535 rows, 56064 columns
+    and 2^31 - 1 cells (the kernel's int cell indices) has a plan."""
+    large_, cc, rows, smem = roi_pool._bwd_plan(h, w, itemsize)
+    assert large_ == large
     assert cc in (16, 8, 4) and cc * itemsize % 16 == 0
-    tile = -(-h * w * cc * itemsize // 128) * 128
+    tile = 0 if large else -(-h * w * cc * itemsize // 128) * 128
     assert smem == tile + rows * w * cc * 4 + roi_pool._CHUNK_BYTES <= 232_448
     bands = [range(y, min(h, y + rows)) for y in range(0, h, rows)]
     assert sorted(y for band in bands for y in band) == list(range(h))
     assert (len(bands) == 1) == one_band
     assert len(bands[0]) - len(bands[-1]) < len(bands)       # equal heights
-    with pytest.raises(ValueError):
-        roi_pool._bwd_plan(h, 256, itemsize)
+    assert roi_pool._bwd_plan(h, 256, itemsize).large
+    assert roi_pool._bwd_plan(65535, 32768, itemsize).cc >= 1      # 2^31 - 32768 cells
+    assert roi_pool._bwd_plan(38304, 56064, itemsize).cc >= 1
+    for bad in ((h, 56065), (65535, 32769), (38305, 56064), (65536, 1)):
+        with pytest.raises(ValueError):
+            roi_pool._bwd_plan(*bad, itemsize)

@@ -22,6 +22,7 @@ from trcnn.models import make_model as jax_make_model
 from trcnn.models.faster_rcnn import postprocess as jax_postprocess
 from trcnn_torch.convert import flax_to_state_dict, state_dict_to_flax
 from trcnn_torch.models import make_model, postprocess
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_e2e.json")
 

@@ -40,6 +40,7 @@ from trcnn_torch.targets import anchor_targets, proposal_targets
 from trcnn_torch.train import TrainState, learning_rate, train_step
 from trcnn_torch.train.optim import is_frozen
 from trcnn_torch.train.step import BATCH_KEYS
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 T = torch.from_numpy
 TRACE = 4          # index of optax.trace in make_optimizer's chain

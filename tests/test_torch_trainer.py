@@ -24,6 +24,8 @@ from trcnn_torch.entry import train_entry
 from trcnn_torch.models import make_model
 from trcnn_torch.train import CaffeSGD, TrainConfig, Trainer, learning_rate
 from trcnn_torch.train.optim import is_frozen
+from trcnn_torch.train.trainer import checkpoints
+from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from __graft_entry__ import _tiny_cfg  # noqa: E402
@@ -103,14 +105,14 @@ def test_resume_is_bit_equal_to_an_uninterrupted_run(tmp_path, capsys):
     batches = _batches(cfg, 4)
     whole = _trainer(cfg, tmp_path / "whole", 4, 1, keep=2)
     whole.fit(batches)
-    assert [s for s, _ in whole.checkpoints()] == [3, 4]       # keep-N retention
+    assert [s for s, _ in checkpoints(whole.tcfg.checkpoint_dir)] == [3, 4]  # keep-N retention
     logs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["step"] for r in logs] == [2, 4]
     assert all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in logs)
 
     first = _trainer(cfg, tmp_path / "split", 3, 0)
     first.fit(batches[:3])
-    assert [s for s, _ in first.checkpoints()] == [3]
+    assert [s for s, _ in checkpoints(first.tcfg.checkpoint_dir)] == [3]
     resumed = _trainer(cfg, tmp_path / "split", 4, 0)
     assert resumed.state.step == 3
     resumed.fit(batches[3:])

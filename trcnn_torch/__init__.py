@@ -5,7 +5,8 @@ weights and inputs give the same discrete results (keep-sets, RoI bin
 bounds, top-k order, sampled sets, detection classes) and float results
 within stated tolerances.  It imports nothing of ``trcnn``: what it needs of
 the framework-free modules (the config tree, the base anchors, the IEEE
-division table) it keeps as its own copy.
+division table, the weight importers, the data layer, the AP code) it
+keeps as its own copy.
 
 Package map (mirrors ``trcnn``):
 
@@ -26,16 +27,29 @@ Package map (mirrors ``trcnn``):
                                R-CNN composite (detect, postprocess,
                                losses) over either backbone.
 - :mod:`trcnn_torch.train`   — the Caffe-order MomentumSGD, the train step
-                               and the trainer with checkpoint/resume.
+                               and the trainer with checkpoint/resume,
+                               upload lookahead and the evaluator hook.
+- :mod:`trcnn_torch.data`    — preprocessing (the port's own resize,
+                               bit-equal to OpenCV's generic bilinear),
+                               image files through cv2 or PIL, the VOC,
+                               synthetic and concatenated datasets and the
+                               batching loader.
+- :mod:`trcnn_torch.eval`    — VOC AP, the devkit detection files and the
+                               single-device evaluator.
+- :mod:`trcnn_torch.cli`     — ``forward``, ``evaluate`` and ``train``, run
+                               as ``python -m trcnn_torch.cli.<name>``.
 - :mod:`trcnn_torch.config`  — the port's copy of the config classes.
 - :mod:`trcnn_torch.convert` — flax parameter tree and optax momentum trace
                                <-> ``state_dict`` and momentum buffers.
-- :mod:`trcnn_torch.convert_resnet` — ResNet-101 npz import (torchvision
-                               and chainercv naming) into a state_dict.
+- :mod:`trcnn_torch.convert_chainer`, :mod:`trcnn_torch.convert_caffemodel`,
+  :mod:`trcnn_torch.convert_resnet` — Chainer npz (import and export),
+                               caffemodel and ResNet-101 npz import into a
+                               state_dict; :mod:`trcnn_torch.weights`
+                               dispatches them.
 - :mod:`trcnn_torch.entry`   — the full VOC detect graph (``entry``) and
                                training step (``train_entry``) on one
                                device, the card unless asked for the CPU,
                                for either backbone.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

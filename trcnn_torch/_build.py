@@ -27,12 +27,15 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem")
+# launch counters: one per kernel, K4's large-map variant apart (it lives in
+# libroi_pool_bwd.so)
+COUNTERS = KERNELS + ("roi_pool_bwd_large",)
 # no --use_fast_math: it makes '/' inexact, and RoI bin bounds need the IEEE
 # quotient (csrc/roi_pool.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+launch_counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,134 @@
+"""End-to-end Faster R-CNN training, the port's counterpart of
+``scripts/train.py`` (the reference's ``train.py``: approximate joint
+training, Caffe-order MomentumSGD, lr 1e-3 x0.1 at 50k, 70k iterations).
+
+    python -m trcnn_torch.cli.train --dataset_root /path/VOCdevkit/VOC2007 \
+        --pretrained_model imagenet_vgg16.npz --out checkpoints/
+
+Any batch size (padded canvases, one per orientation bucket); checkpoints
+``<out>/ckpt_<step>.pt`` with resume; ``--eval_every N`` runs a held-out
+VOC07 mAP every N steps and after the last.  ``--dataset_root`` repeats
+for a union (VOC07+12 trainval).  ``--dataset synthetic`` trains on the
+built-in synthetic set.  One device: the card unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from typing import Optional, Sequence
+
+import torch
+
+from trcnn_torch.cli import DTYPES, add_common_flags, make_config, setup_device
+from trcnn_torch.convert_chainer import merge_params
+from trcnn_torch.data import ConcatDetection, DetectionLoader, SyntheticDetection, VOCDetection
+from trcnn_torch.eval import Evaluator
+from trcnn_torch.models.faster_rcnn import make_model
+from trcnn_torch.train.trainer import TrainConfig, Trainer
+from trcnn_torch.weights import import_weights
+
+_OPTIM_FLAGS = {"lr": "base_lr", "lr_decay_step": "lr_decay_step",
+                "warmup_steps": "warmup_steps", "clip_grad_norm": "clip_grad_norm"}
+
+
+def parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--dataset", default="voc", choices=["voc", "coco", "synthetic"])
+    ap.add_argument("--dataset_root", action="append", default=None,
+                    help="VOCdevkit/VOCxxxx root (--dataset voc); repeat it to train on the "
+                         "union of several")
+    ap.add_argument("--split", default="trainval")
+    ap.add_argument("--config", default="voc", choices=["voc", "coco"],
+                    help="hyperparameter preset (only voc in the port so far)")
+    ap.add_argument("--out", default="result", help="checkpoint directory")
+    ap.add_argument("--batch_size", type=int, default=1)
+    ap.add_argument("--iters", type=int, default=None,
+                    help="total iterations (default: the config's 70000)")
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--warmup_steps", type=int, default=None,
+                    help="linear lr warmup iterations (default 0)")
+    ap.add_argument("--clip_grad_norm", type=float, default=None,
+                    help="global-norm gradient clip (default 0: off)")
+    ap.add_argument("--lr_decay_step", type=int, default=None,
+                    help="step from which the lr is multiplied by lr_decay_factor")
+    ap.add_argument("--transfer", default="float32", choices=["float32", "uint8"],
+                    help="host-to-device image format; uint8 quarters the upload (the "
+                         "mean subtraction moves to the device)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log_every", type=int, default=20)
+    ap.add_argument("--checkpoint_every", type=int, default=5000)
+    ap.add_argument("--eval_every", type=int, default=0,
+                    help="held-out mAP every N steps and after the last (0: off)")
+    ap.add_argument("--eval_split", default="test", help="VOC split of the held-out set")
+    ap.add_argument("--eval_limit", type=int, default=500,
+                    help="evaluate the first N held-out images")
+    ap.add_argument("--eval_synthetic_n", type=int, default=256,
+                    help="--dataset synthetic: the held-out set's size")
+    add_common_flags(ap)
+    args = ap.parse_args(argv)
+    if args.dataset == "coco" or args.config == "coco":
+        ap.error("COCO training comes with the COCO config (ROADMAP Queue 1 item 3)")
+    if args.dataset == "voc" and not args.dataset_root:
+        ap.error("--dataset voc requires --dataset_root")
+    return args
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Trainer:
+    """The CLI's work; returns the trainer after ``fit``."""
+    args = parse(argv)
+    dtype = DTYPES[args.dtype]
+    device = setup_device(args.device, dtype)
+    cfg = make_config(args.backbone)
+    overrides = {field: getattr(args, flag) for flag, field in _OPTIM_FLAGS.items()
+                 if getattr(args, flag) is not None}
+    if overrides:
+        cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, **overrides))
+
+    if args.dataset == "voc":
+        parts = [VOCDetection(root, args.split) for root in args.dataset_root]
+        ds = parts[0] if len(parts) == 1 else ConcatDetection(parts)
+    else:
+        ds = SyntheticDetection(n=512, num_classes=cfg.num_classes, seed=args.seed)
+    print(f"dataset: {args.dataset} ({len(ds)} images), device: {device}", flush=True)
+    loader = DetectionLoader(ds, batch_size=args.batch_size, image_cfg=cfg.image, augment=True,
+                             shuffle=True, repeat=True, seed=args.seed,
+                             uint8_images=args.transfer == "uint8")
+
+    model = make_model(cfg, dtype=dtype, device=device)
+    model.init(torch.Generator(device=device).manual_seed(args.seed))
+    if args.pretrained_model:
+        # strict=False: an ImageNet trunk has no RPN or head; they keep the
+        # seeded init
+        imported = import_weights(args.pretrained_model, cfg, strict=False)
+        model.load_state_dict(merge_params(model.state_dict(), imported))
+        print(f"warm-start: {len(imported)} tensors from {args.pretrained_model}", flush=True)
+
+    evaluator = None
+    if args.eval_every:
+        if args.dataset == "voc":
+            # the held-out set is the first root's (VOC07 test, also for 07+12)
+            eval_ds = VOCDetection(args.dataset_root[0], args.eval_split, use_difficult=True)
+        else:
+            eval_ds = SyntheticDetection(n=args.eval_synthetic_n, num_classes=cfg.num_classes,
+                                         seed=args.seed + 1)
+        evaluator = Evaluator(model, cfg, eval_ds, limit=args.eval_limit,
+                              batch_size=args.batch_size, device=device)
+    trainer = Trainer(model, cfg, TrainConfig(
+        total_iters=args.iters, log_every=args.log_every,
+        checkpoint_every=args.checkpoint_every, checkpoint_dir=args.out, seed=args.seed,
+        eval_every=args.eval_every), device=device, evaluator=evaluator)
+    trainer.fit(loader)
+    print("training done", flush=True)
+    return trainer
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -48,11 +48,24 @@
 // finishes.  Walking the map through L1 and L2 instead of a shared slice was
 // slower than the first design.
 //
+// The large-map variant (kGlobal, entry point trcnn_roi_pool_bwd_large):
+// a map whose slice does not fit in shared memory beside the slab, or that
+// has more than 255 cells on a side, is walked from global memory (L1 and
+// L2) instead, with the same blocks, the same walk and the same float32
+// slab of dfeat in shared memory; bin ranges are 16-bit, winners plain
+// ints.  The wrapper's plan picks it only for such maps: where the slice
+// fits, an L2 walk measured slower than the shared slice (PERF.md).  The slab
+// alone bounds it: band_rows x W x cc floats, down to one channel a block,
+// so it takes maps up to 65535 rows and 56064 columns, and, since cell
+// indices and winners are ints, at most INT_MAX cells.
+//
 // Numerics: shared-memory atomics add in a run-dependent order, so with
 // real-valued g the result matches the plain version within rounding; with
 // integer-valued g every partial sum is exact and it is bit-equal.
 
+#include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "roi_bins.cuh"
 
@@ -62,7 +75,8 @@ using namespace trcnn_roi;
 
 constexpr int kThreads = 1024;
 // Shared memory for a chunk of RoIs beside the slice and the slab: each
-// RoI's P row ranges and P column ranges as bytes, 4P bytes a RoI
+// RoI's P row ranges and P column ranges, 4P coordinates a RoI, as bytes
+// (16-bit in the large-map variant)
 // (= trcnn_torch/ops/roi_pool.py:_CHUNK_BYTES).
 constexpr int kChunkBytes = 8192;
 
@@ -111,8 +125,9 @@ __device__ __forceinline__ unsigned gt_mask(unsigned a, unsigned b) {
 }
 
 // A bin's running argmax over V channels of T: the first cell, then each
-// later cell whose value is strictly greater.
-template <typename T, int V>
+// later cell whose value is strictly greater.  kPacked selects the packed
+// bf16 form below where it exists.
+template <typename T, int V, bool kPacked>
 struct Argmax {
   float m[V];
   int best[V];
@@ -138,9 +153,9 @@ struct Argmax {
 // bf16 in 16-byte vectors: values stay packed as bf16x2 words, winners as
 // 16-bit cell pairs (a slice has under 2^16 cells: it fits in shared
 // memory), and one mask per word selects both, three instructions per two
-// channels.
+// channels.  Not for the large-map variant, whose maps may have more cells.
 template <>
-struct Argmax<__nv_bfloat16, 8> {
+struct Argmax<__nv_bfloat16, 8, true> {
   unsigned m[4], best[4];
   __device__ __forceinline__ void init(const __nv_bfloat16* p, int cell) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
@@ -178,23 +193,26 @@ __device__ __forceinline__ int slab_index(int cell, int c, int cc) {
 }
 
 // One work item: bin (ph, pw) of a RoI for channel vector v.  Walks the
-// bin's cells in the shared slice in column-major order (x outer, y inner)
-// and adds g (V channels at gp) into the slab at each channel's winner that
-// lies in the band [y_lo, y_hi).
-template <typename T, int V>
-__device__ __forceinline__ void accumulate_bin(const unsigned char* rg, int ph, int pw, int v,
-                                               int W, int P, int cc, int y_lo, int y_hi,
-                                               const T* tile, float* slab, const T* gp) {
+// bin's cells of the map (src, cells `stride` elements apart: the shared
+// slice, or feat itself in the large-map variant) in column-major order
+// (x outer, y inner) and adds g (V channels at gp) into the slab at each
+// channel's winner that lies in the band [y_lo, y_hi).
+template <typename T, int V, bool kGlobal, typename Coord>
+__device__ __forceinline__ void accumulate_bin(const Coord* rg, int ph, int pw, int v, int W,
+                                               int P, int cc, int y_lo, int y_hi, const T* src,
+                                               int stride, float* slab, const T* gp) {
   const int hs = rg[ph], he = rg[P + ph];
   if (he <= hs || he <= y_lo || hs >= y_hi) return;  // empty, or not in the band
   const int ws = rg[2 * P + pw], we = rg[3 * P + pw];
   if (we <= ws) return;
   float gv[V];
   load_lanes<T, V>(gp, gv);
-  const T* col = tile + v * V;
+  const T* col = src + v * V;
   int cell = hs * W + ws;
-  Argmax<T, V> am;
-  am.init(col + cell * cc, cell);
+  Argmax<T, V, !kGlobal> am;
+  // 64-bit cell offsets only where the map lies in global memory
+  auto at = [&](int c) { return col + (kGlobal ? (size_t)c * stride : (size_t)(c * stride)); };
+  am.init(at(cell), cell);
   const int bh = he - hs, n = (we - ws) * bh;
   int y = 0;
 #pragma unroll 4
@@ -205,7 +223,7 @@ __device__ __forceinline__ void accumulate_bin(const unsigned char* rg, int ph, 
     } else {
       cell += W;
     }
-    am.step(col + cell * cc, cell);
+    am.step(at(cell), cell);
   }
 #pragma unroll
   for (int k = 0; k < V; ++k) {
@@ -214,11 +232,12 @@ __device__ __forceinline__ void accumulate_bin(const unsigned char* rg, int ph, 
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1)
     roi_pool_bwd_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
                         const T* __restrict__ g, int R, int H, int W, int C, int P, float scale,
                         int cc, int band_rows, T* __restrict__ dfeat) {
+  using Coord = std::conditional_t<kGlobal, uint16_t, uint8_t>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int c0 = blockIdx.x * cc;
   const int y_lo = blockIdx.y * band_rows;
@@ -227,25 +246,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int map_cells = H * W;
   const int slab_cells = band_rows * W;
   T* tile = reinterpret_cast<T*>(smem);
-  float* slab = reinterpret_cast<float*>(smem + tile_bytes(map_cells, cc, sizeof(T)));
-  unsigned char* ranges = reinterpret_cast<unsigned char*>(slab + (size_t)slab_cells * cc);
-  const int chunk = kChunkBytes / (4 * P);
+  float* slab = reinterpret_cast<float*>(
+      smem + (kGlobal ? 0 : tile_bytes(map_cells, cc, sizeof(T))));
+  Coord* ranges = reinterpret_cast<Coord*>(slab + (size_t)slab_cells * cc);
+  const int chunk = kChunkBytes / (4 * P * (int)sizeof(Coord));
 
   const int nv = min(cc, C - c0) / V;  // work items per bin
   const T* fb = feat + (size_t)b * H * W * C + c0;
-  for (int i = threadIdx.x; i < map_cells * nv; i += blockDim.x) {
-    const int cell = i / nv;
-    const int v = i - cell * nv;
-    if constexpr (V == 1) {
-      tile[cell * cc + v] = fb[(size_t)cell * C + v];
-    } else {
-      *reinterpret_cast<uint4*>(tile + cell * cc + v * V) =
-          __ldg(reinterpret_cast<const uint4*>(fb + (size_t)cell * C + v * V));
+  if constexpr (!kGlobal) {
+    for (int i = threadIdx.x; i < map_cells * nv; i += blockDim.x) {
+      const int cell = i / nv;
+      const int v = i - cell * nv;
+      if constexpr (V == 1) {
+        tile[cell * cc + v] = fb[(size_t)cell * C + v];
+      } else {
+        *reinterpret_cast<uint4*>(tile + cell * cc + v * V) =
+            __ldg(reinterpret_cast<const uint4*>(fb + (size_t)cell * C + v * V));
+      }
     }
   }
-  float4* slab4 = reinterpret_cast<float4*>(slab);
-  for (int i = threadIdx.x; i < slab_cells * cc / 4; i += blockDim.x)
-    slab4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if ((slab_cells * cc) % 4 == 0) {
+    float4* slab4 = reinterpret_cast<float4*>(slab);
+    for (int i = threadIdx.x; i < slab_cells * cc / 4; i += blockDim.x)
+      slab4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = threadIdx.x; i < slab_cells * cc; i += blockDim.x) slab[i] = 0.f;
+  }
+  const T* src = kGlobal ? fb : tile;
+  const int stride = kGlobal ? C : cc;
 
   for (int r0 = 0; r0 < R; r0 += chunk) {
     const int nr = min(chunk, R - r0);
@@ -255,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = threadIdx.x; i < nr * P; i += blockDim.x) {
       const int rr = i / P, p = i - rr * P;
       const RoiBins rb = roi_bins(rois + ((size_t)b * R + r0 + rr) * 4, scale, P);
-      unsigned char* rg = ranges + rr * 4 * P;
+      Coord* rg = ranges + rr * 4 * P;
       int lo, hi;
       bin_range(p, rb.bin_h, rb.start_h, H, lo, hi);
       rg[p] = lo, rg[P + p] = hi;
@@ -272,8 +300,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int spw = sq % P, sph = sq / P % P, srr = sq / (P * P);
     while (rr < nr) {
       const int q = (rr * P + ph) * P + pw;  // the bin, counted over the chunk's RoIs
-      accumulate_bin<T, V>(ranges + rr * 4 * P, ph, pw, v, W, P, cc, y_lo, y_hi, tile, slab,
-                           g + (((size_t)b * R + r0) * P * P + q) * C + c0 + v * V);
+      accumulate_bin<T, V, kGlobal>(ranges + rr * 4 * P, ph, pw, v, W, P, cc, y_lo, y_hi, src,
+                                    stride, slab,
+                                    g + (((size_t)b * R + r0) * P * P + q) * C + c0 + v * V);
       v += sv;
       int carry = v >= nv;
       v -= carry ? nv : 0;
@@ -300,14 +329,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool kGlobal>
 cudaError_t launch(const void* feat, const float* rois, const void* g, int B, int R, int H,
                    int W, int C, int P, float scale, int cc, int band_rows, int smem_bytes,
                    void* dfeat, cudaStream_t stream) {
-  const size_t need = tile_bytes(H * W, cc, sizeof(T)) +
+  const size_t coord = kGlobal ? 2 : 1;
+  const size_t need = (kGlobal ? 0 : tile_bytes(H * W, cc, sizeof(T))) +
                       (size_t)band_rows * W * cc * sizeof(float) + kChunkBytes;
-  if (cc <= 0 || cc * sizeof(T) % 16 != 0 || band_rows <= 0 || (size_t)smem_bytes < need ||
-      P < 1 || 4 * P > kChunkBytes || H > 255 || W > 255)
+  const int max_side = kGlobal ? 65535 : 255;
+  if (cc <= 0 || cc % V != 0 || (!kGlobal && cc * sizeof(T) % 16 != 0) || band_rows <= 0 ||
+      (size_t)smem_bytes < need || P < 1 || 4 * P * coord > kChunkBytes || H > max_side ||
+      W > max_side || (size_t)H * W > (size_t)INT_MAX)
     return cudaErrorInvalidValue;
   // the kernel's shared-memory limit on each device, raised when a launch
   // needs more than the last one set
@@ -316,19 +348,43 @@ cudaError_t launch(const void* feat, const float* rois, const void* g, int B, in
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64 || smem_bytes > smem_set[dev]) {
-    err = cudaFuncSetAttribute(roi_pool_bwd_kernel<T, V>,
+    err = cudaFuncSetAttribute(roi_pool_bwd_kernel<T, V, kGlobal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
     if (dev < 64) smem_set[dev] = smem_bytes;
   }
   const dim3 grid((C + cc - 1) / cc, (H + band_rows - 1) / band_rows, B);
-  roi_pool_bwd_kernel<T, V><<<grid, kThreads, smem_bytes, stream>>>(
+  roi_pool_bwd_kernel<T, V, kGlobal><<<grid, kThreads, smem_bytes, stream>>>(
       static_cast<const T*>(feat), rois, static_cast<const T*>(g), R, H, W, C, P, scale, cc,
       band_rows, static_cast<T*>(dfeat));
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// 16-byte vectors where every pointer is aligned and the channel count and
+// the slice width are multiples of the vector, else one channel an item.
+template <bool kGlobal>
+cudaError_t dispatch(const void* feat, const float* rois, const void* g, int B, int R, int H,
+                     int W, int C, int P, float scale, int dtype, int cc, int band_rows,
+                     int smem_bytes, void* dfeat, cudaStream_t stream) {
+  const bool aligned = aligned16(feat) && aligned16(g) && aligned16(dfeat);
+  if (dtype == 0) {
+    return aligned && C % 4 == 0 && cc % 4 == 0
+               ? launch<float, 4, kGlobal>(feat, rois, g, B, R, H, W, C, P, scale, cc,
+                                           band_rows, smem_bytes, dfeat, stream)
+               : launch<float, 1, kGlobal>(feat, rois, g, B, R, H, W, C, P, scale, cc,
+                                           band_rows, smem_bytes, dfeat, stream);
+  }
+  if (dtype == 1) {
+    return aligned && C % 8 == 0 && cc % 8 == 0
+               ? launch<__nv_bfloat16, 8, kGlobal>(feat, rois, g, B, R, H, W, C, P, scale, cc,
+                                                   band_rows, smem_bytes, dfeat, stream)
+               : launch<__nv_bfloat16, 1, kGlobal>(feat, rois, g, B, R, H, W, C, P, scale, cc,
+                                                   band_rows, smem_bytes, dfeat, stream);
+  }
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -343,20 +399,18 @@ extern "C" cudaError_t trcnn_roi_pool_bwd(const void* feat, const float* rois, c
                                           int B, int R, int H, int W, int C, int P,
                                           float spatial_scale, int dtype, int cc, int band_rows,
                                           int smem_bytes, void* dfeat, cudaStream_t stream) {
-  const bool vec = aligned16(feat) && aligned16(g) && aligned16(dfeat);
-  if (dtype == 0) {
-    return vec && C % 4 == 0
-               ? launch<float, 4>(feat, rois, g, B, R, H, W, C, P, spatial_scale, cc, band_rows,
-                                  smem_bytes, dfeat, stream)
-               : launch<float, 1>(feat, rois, g, B, R, H, W, C, P, spatial_scale, cc, band_rows,
-                                  smem_bytes, dfeat, stream);
-  }
-  if (dtype == 1) {
-    return vec && C % 8 == 0
-               ? launch<__nv_bfloat16, 8>(feat, rois, g, B, R, H, W, C, P, spatial_scale, cc,
-                                          band_rows, smem_bytes, dfeat, stream)
-               : launch<__nv_bfloat16, 1>(feat, rois, g, B, R, H, W, C, P, spatial_scale, cc,
-                                          band_rows, smem_bytes, dfeat, stream);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch<false>(feat, rois, g, B, R, H, W, C, P, spatial_scale, dtype, cc, band_rows,
+                         smem_bytes, dfeat, stream);
+}
+
+// The large-map variant, same arguments: feat walked from global memory, so
+// smem_bytes holds band_rows * W * cc floats and kChunkBytes only; any cc
+// from 1 up; H and W at most 65535, H * W at most INT_MAX.
+extern "C" cudaError_t trcnn_roi_pool_bwd_large(const void* feat, const float* rois,
+                                                const void* g, int B, int R, int H, int W, int C,
+                                                int P, float spatial_scale, int dtype, int cc,
+                                                int band_rows, int smem_bytes, void* dfeat,
+                                                cudaStream_t stream) {
+  return dispatch<true>(feat, rois, g, B, R, H, W, C, P, spatial_scale, dtype, cc, band_rows,
+                        smem_bytes, dfeat, stream);
 }

@@ -10,8 +10,11 @@
   mean, then cls_score and bbox_pred in float32.  No dropout.
 
 Every BatchNorm is frozen (``FrozenBatchNorm``): its scale, bias, mean and
-var are float32 parameters that take no gradient, named as the flax leaves
-are.  Input and output are NHWC; inside, the convolutions run on a
+var are float32 parameters, named as the flax leaves are, that the
+optimizer never moves.  They take gradients as the JAX package's do: those
+of res3-res5 enter the global norm, the clip and the momentum trace
+(``trcnn_torch/train/optim.py``); those of conv1, bn1 and res2, which run
+without autograd, are none, as JAX's are zero.  Input and output are NHWC; inside, the convolutions run on a
 channels-last NCHW view, as the VGG-16 trunk's do.  Convolutions have no
 bias.  Rounding follows flax's order in the compute dtype: the convolution
 is rounded, then the FrozenBN's multiply and its add are each rounded
@@ -40,7 +43,7 @@ class FrozenBatchNorm(nn.Module):
         self.eps = eps
         for name, fill in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0), ("var", 1.0)):
             self.register_parameter(name, nn.Parameter(
-                torch.full((channels,), fill, device=device), requires_grad=False))
+                torch.full((channels,), fill, device=device)))
 
     @torch.no_grad()
     def reset_parameters(self) -> None:
@@ -49,10 +52,42 @@ class FrozenBatchNorm(nn.Module):
             p.fill_(fill)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the fold in float32, then multiply and add each rounded to x.dtype
-        inv = self.scale / torch.sqrt(self.var + self.eps)
-        shift = self.bias - self.mean * inv
-        return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+        return _FrozenBN.apply(x, self.scale, self.bias, self.mean, self.var, self.eps)
+
+
+class _FrozenBN(torch.autograd.Function):
+    """y = x * inv + shift with inv = scale / sqrt(var + eps) and shift =
+    bias - mean * inv: the fold in float32, then the multiply and the add
+    each rounded to x.dtype.  One autograd node instead of the dozen of the
+    fold's and the casts' ops: backward gives dx = g * inv in x.dtype, as
+    autograd through the forward does, and the four leaves' gradients from
+    two per-channel float32 sums, sum(g) and sum(g * x) (the product
+    rounded to x.dtype, as autograd's is), through the fold's chain rule in
+    float32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean, var, eps):
+        std = torch.sqrt(var + eps)
+        inv = scale / std
+        shift = bias - mean * inv
+        inv_x = inv.to(x.dtype).view(1, -1, 1, 1)
+        if any(ctx.needs_input_grad[1:5]):
+            ctx.save_for_backward(x, inv_x, scale, mean, inv, std)
+        else:
+            ctx.save_for_backward(None, inv_x, None, None, None, None)
+        return x * inv_x + shift.to(x.dtype).view(1, -1, 1, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv_x, scale, mean, inv, std = ctx.saved_tensors
+        dx = g * inv_x if ctx.needs_input_grad[0] else None
+        if x is None:
+            return dx, None, None, None, None, None
+        d_shift = g.sum((0, 2, 3), dtype=torch.float32)
+        d_inv = (g * x).sum((0, 2, 3), dtype=torch.float32) - mean * d_shift
+        d_scale = d_inv / std
+        d_var = -d_inv * scale / (std * std) / (2 * std)
+        return dx, d_scale, d_shift, -inv * d_shift, d_var, None
 
 
 def _conv(in_ch: int, out_ch: int, k: int, stride: int = 1, device=None) -> nn.Conv2d:

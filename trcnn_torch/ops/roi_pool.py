@@ -28,16 +28,20 @@ is a selection, so it is bit-equal to its plain version.  K4 gives each
 (image, channel slice, row band) one block that accumulates the band's
 float32 dfeat in shared memory and writes it once in feat's dtype, so the
 wrapper allocates the output alone: no float32 scratch, no zeroing, no cast.
-The slice width and band height are :func:`_bwd_plan`'s.  K4's shared-memory
-atomics add in a run-dependent order: bit-equal on integer-valued
-gradients, within rounding otherwise.
+The slice width and band height are :func:`_bwd_plan`'s.  A map whose
+slice does not fit in shared memory, or with more than 255 cells on a
+side, takes K4's large-map variant (``trcnn_roi_pool_bwd_large``, counted
+as ``roi_pool_bwd_large``): the same blocks walking feat from global
+memory, with 16-bit cell coordinates.  K4's shared-memory atomics add in a
+run-dependent order: bit-equal on integer-valued gradients, within
+rounding otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -207,16 +211,35 @@ SMEM_LIMIT = 232_448
 _CHUNK_BYTES = 8192
 
 
+class BwdPlan(NamedTuple):
+    """K4's tiling of a map: the variant, the channels (cc) and rows
+    (band_rows) of a block, and its dynamic shared memory in bytes."""
+
+    large: bool      # the large-map variant: feat walked from global memory
+    cc: int
+    band_rows: int
+    smem: int
+
+
+# the large-map variant's limits: 16-bit cell coordinates, int cell indices
+LARGE_MAX_SIDE = 65535
+LARGE_MAX_CELLS = 2**31 - 1
+
+
 @lru_cache(maxsize=None)
-def _bwd_plan(h: int, w: int, itemsize: int) -> Tuple[int, int, int]:
-    """K4's tiling of an h x w map whose elements take ``itemsize`` bytes:
-    (cc, band_rows, smem_bytes).  A block holds in shared memory its slice
-    of cc channels of the whole map in feat's dtype (rounded up to 128
-    bytes), a float32 slab of band_rows x w x cc, and _CHUNK_BYTES for a
-    chunk of RoIs, at most SMEM_LIMIT in all.  cc is 16, 8 or 4 channels, a
-    multiple of the 16-byte vector (16 // itemsize channels).  The fewest
-    bands of equal height win, then the widest cc.  The kernel keeps cell
-    coordinates in bytes: h and w at most 255."""
+def _bwd_plan(h: int, w: int, itemsize: int) -> BwdPlan:
+    """K4's tiling of an h x w map whose elements take ``itemsize`` bytes.
+
+    Shared-slice variant, for maps of at most 255 cells a side: a block
+    holds its slice of cc channels of the whole map in feat's dtype (rounded
+    up to 128 bytes), a float32 slab of band_rows x w x cc, and _CHUNK_BYTES
+    for a chunk of RoIs, at most SMEM_LIMIT in all; cc is 16, 8 or 4, a
+    multiple of the 16-byte vector (16 // itemsize channels).  Otherwise,
+    or where no such plan fits, the large-map variant: the slab and the
+    chunk only, cc of 16, 8 or 4 (a multiple of the vector) where one row of
+    slab fits, else 2 or 1.  In each, the fewest bands of equal height win,
+    then the widest cc.  Every map of at most LARGE_MAX_SIDE rows, 56064
+    columns and LARGE_MAX_CELLS cells has a plan; any other raises."""
     vec = 16 // itemsize
     best = None
     for cc in (16, 8, 4):
@@ -226,11 +249,21 @@ def _bwd_plan(h: int, w: int, itemsize: int) -> Tuple[int, int, int]:
         rows = (SMEM_LIMIT - _CHUNK_BYTES - tile) // (w * cc * 4)
         if rows >= 1 and (best is None or -(-h // rows) < best[1]):
             best = (cc, -(-h // rows), tile)
-    if best is None:
-        raise ValueError(f"no K4 plan for a {h} x {w} map of {itemsize}-byte elements")
-    cc, bands, tile = best
-    rows = -(-h // bands)
-    return cc, rows, tile + rows * w * cc * 4 + _CHUNK_BYTES
+    if best is not None:
+        cc, bands, tile = best
+        rows = -(-h // bands)
+        return BwdPlan(False, cc, rows, tile + rows * w * cc * 4 + _CHUNK_BYTES)
+    if max(h, w) <= LARGE_MAX_SIDE and h * w <= LARGE_MAX_CELLS:
+        for widths in ([cc for cc in (16, 8, 4) if cc % vec == 0], [2, 1]):
+            for cc in widths:
+                rows = (SMEM_LIMIT - _CHUNK_BYTES) // (w * cc * 4)
+                if rows >= 1 and (best is None or -(-h // rows) < best[1]):
+                    best = (cc, -(-h // rows))
+            if best is not None:
+                cc, bands = best
+                rows = -(-h // bands)
+                return BwdPlan(True, cc, rows, rows * w * cc * 4 + _CHUNK_BYTES)
+    raise ValueError(f"no K4 plan for a {h} x {w} map of {itemsize}-byte elements")
 
 
 def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tensor,
@@ -238,7 +271,8 @@ def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tens
                            ) -> torch.Tensor:
     """Kernel K4: :func:`roi_pool_backward_plain` on the card.  One launch
     writes every element of dfeat, allocated here in feat's dtype, from
-    float32 sums kept in shared memory (tiling from :func:`_bwd_plan`)."""
+    float32 sums kept in shared memory (tiling and variant from
+    :func:`_bwd_plan`)."""
     _check_inputs("roi_pool_backward_cuda", feat, rois)
     b, h, w, c = feat.shape
     r = rois.shape[1]
@@ -249,13 +283,14 @@ def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tens
     dfeat = torch.empty_like(feat)
     if dfeat.numel() == 0:
         return dfeat
-    cc, rows, smem = _bwd_plan(h, w, feat.element_size())
-    fn = _build.function("roi_pool_bwd", "trcnn_roi_pool_bwd", _BWD_ARGTYPES)
+    plan = _bwd_plan(h, w, feat.element_size())
+    name = "roi_pool_bwd_large" if plan.large else "roi_pool_bwd"
+    fn = _build.function("roi_pool_bwd", f"trcnn_{name}", _BWD_ARGTYPES)
     err = fn(_build.ptr(feat), _build.ptr(rois), _build.ptr(g), b, r, h, w, c, out_size,
-             spatial_scale, _DTYPE_CODE[feat.dtype], cc, rows, smem, _build.ptr(dfeat),
-             _build.stream_of(feat.device))
-    _build.check(err, "trcnn_roi_pool_bwd")
-    _build.count_launch("roi_pool_bwd")
+             spatial_scale, _DTYPE_CODE[feat.dtype], plan.cc, plan.band_rows, plan.smem,
+             _build.ptr(dfeat), _build.stream_of(feat.device))
+    _build.check(err, f"trcnn_{name}")
+    _build.count_launch(name)
     return dfeat
 
 

@@ -15,13 +15,11 @@ update.  The per-parameter rules:
 - frozen parameters take a zero update: VGG-16's conv1_1-conv2_2;
   ResNet-101's conv1, bn1, res2 and every FrozenBN leaf (a path component
   holding "bn").  Their trace still follows the JAX package's optax chain
-  (weight decay enters it, the update is masked after the trace), so that
-  a trace crosses to the port and back (``trcnn_torch/convert.py``) and
-  stays equal step for step.  One difference is deliberate: JAX computes
-  gradients for the FrozenBN leaves of res3-res5 and adds them to their
-  trace; the port computes none (the leaves take no gradient), so that
-  never-applied trace stays the momentum-decayed one while the leaves
-  themselves stay bit-identical;
+  (weight decay and the gradient enter it, the update is masked after the
+  trace), so that a trace crosses to the port and back
+  (``trcnn_torch/convert.py``) and stays equal step for step.  The
+  FrozenBN leaves of res3-res5 take gradients, as JAX's do, so their
+  gradients count in the global norm and the clip as well;
 - the optional global-norm clip scales every gradient first.
 
 The schedule is piecewise constant (x ``lr_decay_factor`` from
