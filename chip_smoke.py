@@ -53,7 +53,18 @@ Phases, one line each, any failure raises and exits non-zero:
    replayed through the plain versions; the forward CLI
    on one image file when the machine has an image library.  Each CLI run
    is a counted path (K1 exactly twice per detect call), and the CLIs'
-   output goes to ``build/chip_smoke/``.
+   output goes to ``build/chip_smoke/``;
+9. the COCO config (81 classes, 800x1344 canvas, 1000 test proposals):
+   each kernel at its COCO shapes against its plain version with times and
+   bounds (K1 on the 80 x 1000 epilogue at b=8 with and without the
+   valid-prefix trim, and at the per-class launch shape; K2 and K4 on the
+   50x84 map at P=7 and P=14 in bf16 and f32; K3 on both canvases); for
+   each backbone the detect path (calibrated seeded weights, a request and
+   a batch of 8) and the training step on the loader's multi-scale batches,
+   each a counted path with its profile, peak memory, replayed kernel calls
+   and, for detect, the epilogue on the model's own input; the evaluate CLI
+   with ``--dataset coco`` on 16 images written as a COCO tree, f32 and
+   bf16.
 
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
@@ -96,7 +107,13 @@ REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "resnet101 evaluate": ("nms", "roi_pool"),
             "vgg16 train CLI": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
             "vgg16 evaluate checkpoint": ("nms", "roi_pool", "stem"),
-            "vgg16 forward CLI": ("nms", "roi_pool", "stem")}
+            "vgg16 forward CLI": ("nms", "roi_pool", "stem"),
+            "vgg16 coco detect": ("nms", "roi_pool", "stem"),
+            "vgg16 coco train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            "resnet101 coco detect": ("nms", "roi_pool"),
+            "resnet101 coco train": ("nms", "roi_pool", "roi_pool_bwd"),
+            "vgg16 coco evaluate float32": ("nms", "roi_pool", "stem"),
+            "vgg16 coco evaluate bfloat16": ("nms", "roi_pool", "stem")}
 BACKBONES = ("vgg16", "resnet101")
 NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
@@ -408,11 +425,12 @@ def check_roi_bwd(feat, rois, g, what, exact):
     return err
 
 
-def roi_row(kernel, what, feat, rois, g=None, out_size=7):
+def roi_row(kernel, what, feat, rois, g=None, out_size=7, plain_iters=3):
     """K2 (g None) or K4 at one shape: the kernel's time, its share of the
-    bound, the plain version's time and the bound from this run's inputs
-    (bytes: inputs read once, the output written once; operations: the
-    window cells and, for K4, one add per non-empty bin, per channel)."""
+    bound, the plain version's time (over ``plain_iters`` calls, one warm-up
+    call before more than one) and the bound from this run's inputs (bytes:
+    inputs read once, the output written once; operations: the window cells
+    and, for K4, one add per non-empty bin, per channel)."""
     from trcnn_torch.ops import roi_pool
 
     b, h, w, c = feat.shape
@@ -420,13 +438,14 @@ def roi_row(kernel, what, feat, rois, g=None, out_size=7):
     if g is None:
         ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_cuda(feat, rois, out_size))
         plain_ms = cuda_time_ms(lambda: roi_pool.roi_max_pool_plain(feat, rois, out_size),
-                                warmup=1, iters=3)
+                                warmup=int(plain_iters > 1), iters=plain_iters)
         out_bytes = b * rois.shape[1] * out_size * out_size * c * feat.element_size()
         bd = bound(nbytes(feat, rois) + out_bytes, cells * float(c), F32_OPS)
     else:
         ms = cuda_time_ms(lambda: roi_pool.roi_pool_backward_cuda(feat, rois, g, out_size))
         plain_ms = cuda_time_ms(
-            lambda: roi_pool.roi_pool_backward_plain(feat, rois, g, out_size), warmup=1, iters=3)
+            lambda: roi_pool.roi_pool_backward_plain(feat, rois, g, out_size),
+            warmup=int(plain_iters > 1), iters=plain_iters)
         bd = bound(nbytes(feat, rois, g, feat), (cells + bins) * float(c), F32_OPS)
     share = bd["bound_ms"] / ms * 100
     phase(f"  {kernel} time at {what}: kernel {ms:.4f} ms ({share:.1f}% of bound), plain "
@@ -658,24 +677,33 @@ def phase_kernels(dev):
     shapes = []
     for what, a in (("(1,608,1024,3) bf16", args), ("(8,608,1024,3) bf16", args8),
                     ("(8,1024,608,3) bf16 (portrait)", argsp)):
-        k1 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
-        l1 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
-        l2 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
-        k2 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
-        ms, lib_ms = statistics.median([k1, k2]), statistics.median([l1, l2])
-        hw = a[0].shape[0] * a[0].shape[1] * a[0].shape[2]
-        b3 = bound(nbytes(*a) + hw // 4 * 64 * 2, 2.0 * hw * 64 * (27 + 576), BF16_OPS)
-        phase(f"  K3 time at {what}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), cuDNN "
-              f"composite {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound {b3['bound_ms']:.4f} ms "
-              f"({b3['bound_by']}); kernel {lib_ms / ms:.2f}x the composite's speed, "
-              f"{b3['bound_ms'] / ms * 100:.1f}% of the bound")
-        shapes.append(dict(shape=what, ms=ms, plain_ms=lib_ms, library_ms=lib_ms, **b3))
-        if ms >= lib_ms and "portrait" not in what:
+        shapes.append(stem_row(what, a))
+        if shapes[-1]["ms"] >= shapes[-1]["library_ms"] and "portrait" not in what:
             raise AssertionError(f"K3 is no faster than the cuDNN composite at {what}")
     del args8, argsp
     rec["stem"] = dict(max_abs_err=err, shapes=shapes, **shapes[1])
     del rec["stem"]["shape"]
     return rec
+
+
+def stem_row(what, a):
+    """K3 and the cuDNN composite (the plain version: conv, bias, ReLU,
+    conv, bias, ReLU, pool) in turns on the bf16 inputs ``a``, with the
+    bound: the kernel's time, the composite's (also its library time)."""
+    from trcnn_torch.ops import stem
+
+    k1 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
+    l1 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
+    l2 = cuda_time_ms(lambda: stem.stem_block1_plain(*a), iters=9)
+    k2 = cuda_time_ms(lambda: stem.stem_block1_cuda(*a), iters=9)
+    ms, lib_ms = statistics.median([k1, k2]), statistics.median([l1, l2])
+    hw = a[0].shape[0] * a[0].shape[1] * a[0].shape[2]
+    b3 = bound(nbytes(*a) + hw // 4 * 64 * 2, 2.0 * hw * 64 * (27 + 576), BF16_OPS)
+    phase(f"  K3 time at {what}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), cuDNN "
+          f"composite {lib_ms:.4f} ms ({l1:.4f}, {l2:.4f}), bound {b3['bound_ms']:.4f} ms "
+          f"({b3['bound_by']}); kernel {lib_ms / ms:.2f}x the composite's speed, "
+          f"{b3['bound_ms'] / ms * 100:.1f}% of the bound")
+    return dict(shape=what, ms=ms, plain_ms=lib_ms, library_ms=lib_ms, **b3)
 
 
 def small_cfg(backbone: str):
@@ -730,7 +758,7 @@ def calibrate(model, images, info, head: bool) -> None:
         model.rpn.rpn_bbox_pred.weight.mul_(0.15 / float(rpn.deltas.std()))
         if head:
             rois = torch.stack([torch.tensor([10.0, 10.0, 80.0, 90.0]) + 3 * i
-                                for i in range(8)]).expand(images.shape[0], 8, 4)
+                                for i in range(8)]).expand(images.shape[0], 8, 4).to(images.device)
             cs, bp = model.roi_forward(feat, rois.contiguous())
             model.head.cls_score.weight.mul_(2.0 / float(cs.std()))
             model.head.bbox_pred.weight.mul_(0.1 / float(bp.std()))
@@ -998,6 +1026,19 @@ def profile_window(run, n, what, stages=()):
             hi = max(hi, e)
     busy += hi - lo
     span = max(e for _, e in spans) - spans[0][0]
+    groups, other = kernel_split(kernels, n)
+    phase(f"  profile {what}, {n} calls: device span {span / 1e3 / n:.3f} ms per call, busy "
+          f"{busy / span * 100:.1f}%; kernel ms per call: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    phase("    largest other kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    if stages:
+        phase_split(events, stages, n, sum(groups.values()))
+
+
+def kernel_split(kernels, n):
+    """Device kernel ms per call by group (``KERNEL_GROUPS``, else
+    "other"), and the "other" kernels' ms by name."""
     groups, other = {}, {}
     for e in kernels:
         t = (e.time_range.end - e.time_range.start) / 1e3 / n
@@ -1006,13 +1047,7 @@ def profile_window(run, n, what, stages=()):
             other[e.name[:60]] = other.get(e.name[:60], 0.0) + t
             g = "other"
         groups[g] = groups.get(g, 0.0) + t
-    phase(f"  profile {what}, {n} calls: device span {span / 1e3 / n:.3f} ms per call, busy "
-          f"{busy / span * 100:.1f}%; kernel ms per call: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
-    phase("    largest other kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
-    if stages:
-        phase_split(events, stages, n, sum(groups.values()))
+    return groups, other
 
 
 def phase_split(events, stages, n, total_ms):
@@ -1142,6 +1177,12 @@ def phase_slice(dev, backbone: str, rec):
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if backbone == "resnet101":
         path_kernel_rows(rec, lambda: fn(model, images8, im_info8), "R101 detect b=8")
+    else:
+        # the trim's cost at the VOC shape: one read of a count per epilogue
+        with torch.inference_mode():
+            raw = model.detect(images8, im_info8)
+        epilogue_report(raw, im_info8, model.cfg, "VOC VGG-16 seeded", rec)
+        del raw
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1399,7 +1440,8 @@ def count_path(path, by_path, call):
 
 def busy_over(run):
     """One call of ``run`` under torch.profiler: (the union of its kernel
-    intervals, the host wall time of the call), in ms."""
+    intervals, the host wall time of the call, kernel ms by group), in
+    ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1409,9 +1451,9 @@ def busy_over(run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
         raise AssertionError("the profiler saw no device time")
     busy, (lo, hi) = 0.0, spans[0]
@@ -1420,7 +1462,7 @@ def busy_over(run):
             busy, lo, hi = busy + hi - lo, s, e
         else:
             hi = max(hi, e)
-    return (busy + hi - lo) / 1e3, wall * 1e3
+    return (busy + hi - lo) / 1e3, wall * 1e3, kernel_split(kernels, 1)[0]
 
 
 def phase_weights(dev, tmp):
@@ -1460,29 +1502,36 @@ def print_eval(what, res, busy=None):
     t = res["timing"]
     nb = sum(t["batches"].values())
     buckets = ", ".join(f"{h}x{w}: {n}" for (h, w), n in sorted(t["batches"].items()))
-    line = (f"  {what}: {res['images']} images in {nb} batches of 8 ({buckets}), mAP "
-            f"{res['mAP']:.4f}; {res['images'] / res['seconds']:.2f} img/s end to end; "
+    metric = ", ".join(f"{k[len('eval_'):]} {v:.4f}" for k, v in res["metrics"].items()
+                       if k in ("eval_mAP", "eval_AP", "eval_AP50", "eval_AP75"))
+    line = (f"  {what}: {res['images']} images in {nb} batches of 8 ({buckets}), "
+            f"{metric}; {res['images'] / res['seconds']:.2f} img/s end to end; "
             f"per batch: loader wait {t['wait_s'] / nb * 1e3:.2f} ms, detect "
             f"{t['detect_s'] / nb * 1e3:.2f} ms")
     if busy is not None:
         # kernel time from the profiled pass, over this (unprofiled) pass's wall time: the
         # profiler's own host work stretches the profiled pass several times over
         line += (f"; device busy {busy[0]:.1f} ms of kernels, {busy[0] / res['seconds'] / 10:.1f}% "
-                 f"of this pass's {res['seconds'] * 1e3:.1f} ms (profiled pass {busy[1]:.1f} ms)")
+                 f"of this pass's {res['seconds'] * 1e3:.1f} ms (profiled pass {busy[1]:.1f} ms; "
+                 "kernel ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                          sorted(busy[2].items(), key=lambda kv: -kv[1])) + ")")
     phase(line)
 
 
 def eval_path(path, argv, by_path):
     """The evaluate CLI over ``argv`` as a counted path: K1 exactly twice per
-    detect call (one per batch), a finite mAP."""
+    detect call (one per batch), a finite mAP (VOC) or AP, AP50 and AP75
+    (COCO)."""
     from trcnn_torch.cli import evaluate
 
     res, launches = count_path(path, by_path, lambda: quiet(evaluate.run, argv))
     nb = sum(res["timing"]["batches"].values())
     if launches["nms"] != 2 * nb:
         raise AssertionError(f"{path}: K1 launched {launches['nms']} times in {nb} detect calls")
-    if not np.isfinite(res["mAP"]):
-        raise AssertionError(f"{path}: mAP {res['mAP']}")
+    metrics = {k: v for k, v in res["metrics"].items()
+               if k in ("eval_mAP", "eval_AP", "eval_AP50", "eval_AP75")}
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{path}: {metrics}")
     return res
 
 
@@ -1697,6 +1746,450 @@ def phase_r1_cost(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- COCO
+
+COCO_MAP = (50, 84)      # the 800 x 1344 canvas at stride 16
+# COCO's 80 category ids, sparse in 1..90
+COCO_CATEGORY_IDS = tuple(i for i in range(1, 91)
+                          if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+
+
+def coco_cfg(backbone: str = "vgg16"):
+    from trcnn_torch.config import coco_config
+
+    return coco_config().replace(backbone=backbone)
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host-clock ms of ``n`` calls of ``fn``, each ended by a
+    synchronize, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def coco_epilogue_raw(b: int, r: int, seed: int, dev):
+    """The COCO epilogue's input at uniform scores (``epilogue_case``'s, at
+    81 classes): per image ``r`` RoIs clustered like proposals on the
+    796 x 1340 image (``nms_case``, 3% invalid), each class's box its RoI
+    moved by normalised deltas N(0, 1) (0.1-0.2 of the box), class
+    probabilities uniform in [0, 1] in hundredths, so that about 95% of the
+    80 x r (class, RoI) pairs clear the 0.05 threshold; image 1 has no valid
+    RoI, image 2 only its first 40."""
+    import torch
+
+    from trcnn_torch.models.faster_rcnn import RawDetections
+
+    rng = np.random.default_rng(seed)
+    cases = [nms_case(r, seed + i, im=(796.0, 1340.0)) for i in range(b)]
+    rois = np.stack([c[0] for c in cases])
+    valid = np.stack([c[2] for c in cases])
+    valid[1] = False
+    valid[2, 40:] = False
+    prob = np.round(rng.uniform(0, 1, (b, r, 81)), 2).astype(np.float32)
+    deltas = rng.standard_normal((b, r, 4 * 81)).astype(np.float32)
+    raw = RawDetections(*(torch.from_numpy(a).to(dev) for a in (rois, valid, prob, deltas)))
+    return raw, torch.tensor([[796.0, 1340.0, 1.0]] * b, device=dev)
+
+
+def epilogue_report(raw, im_info, cfg, what, rec):
+    """The test-time epilogue (``postprocess``) on ``raw``: K1 on the
+    batch's valid prefix of the score-sorted (class, RoI) pairs (the port),
+    and for comparison on all of them (``nms.valid_prefix`` patched to the
+    full width).  Both epilogues' detections must be equal and the trimmed
+    K1 call equal to its plain version.  Prints and records the valid
+    counts, the mask bytes, K1's time on each input and each epilogue's
+    (host clock around a synchronize: the trim reads one count back)."""
+    import torch
+
+    from trcnn_torch.models import postprocess
+    from trcnn_torch.ops import nms
+
+    real = nms.valid_prefix
+    arms = {}
+    for arm, prefix in (("trimmed", real), ("untrimmed", lambda sv: sv.shape[-1])):
+        nms.valid_prefix = prefix
+        try:
+            captured = {}
+            with recording(captured):
+                dets = postprocess(raw, im_info, cfg)
+                torch.cuda.synchronize()
+            (args, out), = captured["nms"]
+            k1 = cuda_time_ms(lambda: nms.greedy_keep_cuda(*args), warmup=1, iters=5)
+            ms = host_ms(lambda: postprocess(raw, im_info, cfg))
+        finally:
+            nms.valid_prefix = real
+        b, n = args[1].shape
+        arms[arm] = dict(dets=dets, args=args, out=out, k1=k1, ms=ms, n=n,
+                         mask=b * n * -(-n // 64) * 8)
+        del captured
+    t, u = arms["trimmed"], arms["untrimmed"]
+    if not all(torch.equal(x, y) for x, y in zip(t["dets"], u["dets"])):
+        raise AssertionError(f"epilogue {what}: the trimmed K1 input changed the detections")
+    args, (kp, kv) = t["args"], t["out"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp, pv = nms.greedy_keep_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(kp, pp) and torch.equal(kv, pv)):
+        raise AssertionError(f"K1 differs from plain on the epilogue's inputs: {what}")
+    del pp, pv
+    counts = args[1].sum(-1).tolist()
+    pairs, bd = nms_bound((args[0], args[1], args[4]), args[2], args[3])
+    shape = f"epilogue ({b},{u['n']})->{args[3]} @{args[2]} {what}"
+    phase(f"  K1 {shape}: valid pairs per image {counts}; K1 on the first {t['n']} sorted "
+          f"pairs, mask {t['mask'] / 2**20:.2f} MiB ({u['mask'] / 2**20:.2f} MiB on all "
+          f"{u['n']}); K1 {t['k1']:.4f} ms ({u['k1']:.4f} untrimmed), plain {plain_ms:.1f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({pairs} predicates); epilogue {t['ms']:.3f} ms "
+          f"({u['ms']:.3f} untrimmed); detections equal with and without the trim, keep-sets "
+          f"equal to the plain version's")
+    rec["nms"]["shapes"].append(dict(
+        shape=shape, ms=t["k1"], plain_ms=plain_ms, untrimmed_ms=u["k1"], valid_per_image=counts,
+        width=t["n"], mask_bytes=t["mask"], untrimmed_mask_bytes=u["mask"],
+        epilogue_ms=t["ms"], untrimmed_epilogue_ms=u["ms"], **bd))
+    del arms, t, u
+    torch.cuda.empty_cache()
+
+
+def per_class_row(raw, im_info, cfg, rec):
+    """multiclass_nms's per-class path (50 per class, 100 in all) on the
+    COCO epilogue: its one K1 launch takes the B x 80 (image, class) rows;
+    the call replayed through the plain version and timed."""
+    import dataclasses
+
+    import torch
+
+    from trcnn_torch.models import postprocess
+    from trcnn_torch.ops import nms
+
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, max_dets_per_class=50))
+    captured = {}
+    with recording(captured):
+        dets = postprocess(raw, im_info, cfg)
+        torch.cuda.synchronize()
+    check_dets(dets, raw.rois.shape[0])
+    (args, _), = captured["nms"]
+    what = f"per-class epilogue, K1 batch {tuple(args[1].shape)} -> {args[3]}"
+    replay(captured, what)
+    ms = cuda_time_ms(lambda: nms.greedy_keep_cuda(*args), warmup=1, iters=5)
+    pairs, bd = nms_bound((args[0], args[1], args[4]), args[2], args[3])
+    phase(f"  K1 time at the {what}: {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms")
+    rec["nms"]["shapes"].append(dict(shape=what, ms=ms, **bd))
+    del captured
+
+
+def phase_coco_kernels(dev, rec):
+    """Each kernel at the COCO config's shapes against its plain version,
+    timed beside its bound: K1 on the COCO epilogue at uniform scores
+    (:func:`epilogue_report`) and at the per-class launch shape; K2 at
+    (8, 1000) RoIs and K4 at (8, 128) on the 50 x 84 map, P=7 C=512 and
+    P=14 C=1024, bf16 and f32 (bit-equal, K4 on integer g, at B=2); K3 on
+    the 800 x 1344 canvas and its portrait transpose (bit-equal on integer
+    inputs, within tolerance on real ones, at B=2), timed at B=8 beside the
+    cuDNN composite."""
+    import torch
+
+    from trcnn_torch.ops import roi_pool
+
+    phase("COCO shapes, kernels vs plain versions:")
+    cfg = coco_cfg()
+    raw, info = coco_epilogue_raw(8, 1000, 60, dev)
+    epilogue_report(raw, info, cfg, "uniform scores", rec)
+    per_class_row(raw, info, cfg, rec)
+    del raw
+    torch.cuda.empty_cache()
+
+    fh, fw = COCO_MAP
+    gen = torch.Generator(device=dev).manual_seed(66)
+    for p, c in ((7, 512), (14, 1024)):
+        feat, rois = roi_case(2, 1000 if p == 7 else 300, 61 + p, fh=fh, fw=fw, c=c)
+        rois_t = torch.from_numpy(rois).to(dev)
+        rois128 = rois_t[:, :128].contiguous()
+        g_int = torch.from_numpy(np.random.default_rng(62 + p).integers(
+            -4, 5, tuple(rois128.shape[:2]) + (p, p, feat.shape[-1])).astype(np.float32))
+        for dt in (torch.bfloat16, torch.float32):
+            feat_t = torch.from_numpy(feat).to(dev, dt)
+            rec["roi_pool"]["max_abs_err"] = max(rec["roi_pool"]["max_abs_err"], check_roi_equal(
+                feat_t, rois_t, f"COCO map B=2x{rois.shape[1]} P={p} C={c} {dt}", p))
+            rec["roi_pool_bwd"]["max_abs_err"] = max(
+                rec["roi_pool_bwd"]["max_abs_err"],
+                check_roi_bwd(feat_t, rois128, g_int.to(dev, dt),
+                              f"COCO map B=2x128 P={p} C={c} {dt} integer g", True))
+        del feat_t, g_int
+        feat, rois = roi_case(8, 1000, 63 + p, fh=fh, fw=fw, c=c)
+        rois_t = torch.from_numpy(rois).to(dev)
+        rois128 = rois_t[:, :128].contiguous()
+        for dt in (torch.bfloat16, torch.float32):
+            feat_t = torch.from_numpy(feat).to(dev, dt)
+            name = str(dt).split(".")[-1]
+            rec["roi_pool"]["shapes"].append(roi_row(
+                "K2", f"(8,1000) P={p} C={c} {name}, COCO 50x84 map", feat_t, rois_t, out_size=p,
+                plain_iters=1))
+            torch.cuda.empty_cache()
+            plan = roi_pool._bwd_plan(fh, fw, feat_t.element_size())
+            g = torch.randn(tuple(rois128.shape[:2]) + (p, p, feat.shape[-1]), generator=gen,
+                            device=dev).to(dt)
+            rec["roi_pool_bwd"]["shapes"].append(roi_row(
+                "K4", f"(8,128) P={p} C={c} {name}, COCO 50x84 map, cc={plan.cc}", feat_t,
+                rois128, g, p, plain_iters=1))
+            del feat_t, g
+            torch.cuda.empty_cache()
+
+    for integer in (True, False):
+        kind = "integer" if integer else "real"
+        for shape in ((2, 800, 1344, 3), (2, 1344, 800, 3)):
+            case = stem_case(shape, 64, integer=integer)
+            for dt in (torch.float32, torch.bfloat16) if integer else (torch.bfloat16,):
+                args = [torch.from_numpy(a).to(dev, dt) for a in case]
+                rec["stem"]["max_abs_err"] = max(rec["stem"]["max_abs_err"], check_stem(
+                    args, f"{shape} {dt} {kind} (COCO)", exact=integer))
+    for what, shape in (("(8,800,1344,3) bf16 (COCO)", (8, 800, 1344, 3)),
+                        ("(8,1344,800,3) bf16 (COCO portrait)", (8, 1344, 800, 3))):
+        args = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in stem_case(shape, 65)]
+        rec["stem"]["shapes"].append(stem_row(what, args))
+    del args
+    torch.cuda.empty_cache()
+
+
+def phase_coco_detect(dev, backbone: str, rec):
+    """The COCO detect path through ``entry(cfg=coco_config())``: seeded
+    weights calibrated (:func:`calibrate`) so that the 81-way epilogue
+    keeps detections, a one-image request and a batch of 8 uint8
+    (800, 1344) canvases in bf16, the launch counts (K1 exactly twice per
+    call), latencies, the profile and peak memory; then one call with the
+    first kernel call of each input shape (every K1 call) recorded and
+    replayed through the plain versions, and the epilogue report on this
+    model's own batch (:func:`epilogue_report`)."""
+    import torch
+
+    from trcnn_torch import _build
+    from trcnn_torch.entry import entry
+
+    cfg = coco_cfg(backbone)
+    t0 = time.perf_counter()
+    fn, (model, image, im_info) = entry(dev, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    images8 = torch.randint(0, 256, (8,) + image.shape[1:], dtype=torch.uint8, generator=gen,
+                            device=dev)
+    im_info8 = im_info.expand(8, 3).contiguous()
+    calibrate(model, images8[:2], im_info8[:2], head=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phase(f"COCO detect: {NAMES[backbone]} bf16, 81 classes, uint8 {tuple(image.shape[1:3])}, "
+          f"{cfg.proposals.post_nms_topk_test} proposals, RoI pool {model.pool_size}, built and "
+          f"calibrated in {time.perf_counter() - t0:.1f} s")
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    dets = fn(model, image, im_info)
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    check_dets(dets, 1)
+    dets8 = fn(model, images8, im_info8)
+    torch.cuda.synchronize()
+    check_dets(dets8, 8)
+    launches = dict(_build.launch_counts)
+    phase(f"  launches over one request + one batch of 8: {launches}; detections per image "
+          f"{dets8.valid.sum(-1).tolist()}, classes {len(set(dets8.classes[dets8.valid].tolist()))}")
+    require_launches(f"{backbone} coco detect", launches)
+    require_nms_launches("COCO detect b=8", lambda: fn(model, images8, im_info8), 2)
+    warm = host_ms(lambda: fn(model, image, im_info), 3)
+    b8 = host_ms(lambda: fn(model, images8, im_info8), 3)
+    phase(f"  request latency cold {cold:.2f} ms, warm median {warm:.2f} ms; b=8: {b8:.2f} ms "
+          f"per batch, {8e3 / b8:.2f} img/s")
+    profile_window(lambda: fn(model, images8, im_info8), 2, "COCO detect b=8")
+    phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    captured = {}
+    with recording(captured, first_of_shape=True):
+        fn(model, images8, im_info8)
+        torch.cuda.synchronize()
+    replay(captured, f"bf16 {NAMES[backbone]} COCO detect b=8")
+    del captured
+    with torch.inference_mode():
+        raw = model.detect(images8, im_info8)
+    epilogue_report(raw, im_info8, cfg, f"{NAMES[backbone]} calibrated", rec)
+    del model, raw
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_coco_train(dev, backbone: str, rec):
+    """The COCO training step through ``train_entry(cfg=coco_config())`` on
+    the loader's batches: ``SyntheticDetection`` (81 classes) at batch 8,
+    multi-scale shorter sides drawn per image, uint8 canvases; one cold
+    step and 4 timed ones; the parameters move after the first, the frozen
+    ones never; K1 exactly once per step; the profile split and peak
+    memory; then one step with the first kernel call of each input shape
+    recorded and replayed through the plain versions."""
+    import torch
+
+    from trcnn_torch import _build
+    from trcnn_torch.data import DetectionLoader, SyntheticDetection
+    from trcnn_torch.entry import train_entry
+    from trcnn_torch.train.optim import is_frozen
+    from trcnn_torch.train.step import STAGES
+    from trcnn_torch.train.trainer import to_device
+
+    cfg = coco_cfg(backbone)
+    t0 = time.perf_counter()
+    step_fn, (state, _) = train_entry(dev, cfg=cfg)
+    loader = DetectionLoader(SyntheticDetection(n=40, num_classes=cfg.num_classes, seed=5),
+                             batch_size=8, image_cfg=cfg.image, augment=True, shuffle=True,
+                             seed=1, uint8_images=True)
+    batches = [to_device(b, dev) for b in loader]
+    model = state.model
+    torch.cuda.synchronize()
+    canvases = sorted({tuple(b["images"].shape[1:3]) for b in batches})
+    scales = sorted({round(float(s), 4) for b in batches for s in b["im_info"][:, 2].tolist()})
+    phase(f"COCO train: {NAMES[backbone]} bf16 compute, f32 master weights, {len(batches)} loader "
+          f"batches of 8, canvases {canvases}, {len(scales)} image scales {scales[0]}-{scales[-1]}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times = []
+    for i, batch in enumerate(batches[:5]):
+        t0 = time.perf_counter()
+        m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check_step(m, i)
+        if i == 0:
+            for k, p in model.named_parameters():
+                moved = not torch.equal(p.detach(), before[k])
+                if moved == is_frozen(k, backbone):
+                    raise AssertionError(f"after step 1, {k} {'moved' if moved else 'did not move'}")
+    launches = dict(_build.launch_counts)
+    frozen = [k for k, p in model.named_parameters() if is_frozen(k, backbone)]
+    if any(not torch.equal(model.get_parameter(k), before[k]) for k in frozen):
+        raise AssertionError("a frozen parameter moved")
+    del before
+    phase(f"  launches over {len(times)} train steps: {launches}; {len(frozen)} frozen parameters "
+          f"unchanged")
+    require_launches(f"{backbone} coco train", launches)
+    require_nms_launches("COCO train step b=8", lambda: step_fn(state, batches[0]), 1)
+    warm = statistics.median(times[1:])
+    phase(f"  step ms: cold {times[0]:.2f}, warm {', '.join(f'{t:.2f}' for t in times[1:])}; "
+          f"median {warm:.2f} ms, {8 / warm * 1e3:.2f} img/s")
+    phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_window(lambda: step_fn(state, batches[1]), 2, "COCO train step b=8", STAGES)
+    captured = {}
+    with recording(captured, first_of_shape=True):
+        for batch in batches:
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    replay(captured, f"bf16 {NAMES[backbone]} COCO train steps (first call of each kernel "
+                     f"input shape)")
+    del captured, model, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_coco_set(tmp, n: int):
+    """``SyntheticDetection(n, 81 classes)`` as a COCO tree in ``tmp``: PNG
+    files and an instances json with COCO's 80 sparse category ids, every
+    fourth box a crowd region.  Returns (image dir, json path)."""
+    import os
+
+    from trcnn_torch.data import SyntheticDetection
+    from trcnn_torch.data.image import image_library, write_detections
+
+    if image_library() is None:
+        raise RuntimeError("no image library (cv2 or PIL) to write the COCO set's images")
+    ds = SyntheticDetection(n=n, num_classes=len(COCO_CATEGORY_IDS) + 1)
+    img_dir = os.path.join(tmp, "coco", "images")
+    os.makedirs(img_dir)
+    images, anns = [], []
+    for i in range(n):
+        ex = ds.get_example(i)
+        name = f"{i:012d}.png"
+        write_detections(ex["image"], [], [], os.path.join(img_dir, name))
+        h, w = ex["image"].shape[:2]
+        images.append({"id": 100 + i, "file_name": name, "height": h, "width": w})
+        for (x1, y1, x2, y2), label in zip(ex["boxes"].tolist(), ex["labels"].tolist()):
+            bw, bh = x2 - x1 + 1.0, y2 - y1 + 1.0
+            anns.append({"id": len(anns) + 1, "image_id": 100 + i,
+                         "category_id": COCO_CATEGORY_IDS[label - 1], "bbox": [x1, y1, bw, bh],
+                         "iscrowd": int(len(anns) % 4 == 3), "area": bw * bh})
+    ann_file = os.path.join(tmp, "coco", "instances.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c, "name": f"category_{c}"} for c in COCO_CATEGORY_IDS]},
+                  f)
+    return img_dir, ann_file, sum(a["iscrowd"] for a in anns)
+
+
+def coco_weights(dev, tmp, img_dir, ann_file):
+    """A seeded 81-class VGG-16, calibrated (:func:`calibrate`) on the COCO
+    set's first two canvases so that many (class, RoI) pairs clear the
+    score threshold, exported to a Chainer npz."""
+    import os
+
+    import torch
+
+    from trcnn_torch.convert_chainer import export_chainer_npz
+    from trcnn_torch.data import COCODetection, DetectionLoader, upload
+    from trcnn_torch.models import make_model
+
+    cfg = coco_cfg()
+    model = make_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(12))
+    batch = next(iter(DetectionLoader(COCODetection(img_dir, ann_file), batch_size=2,
+                                      image_cfg=cfg.image, prefetch=0)))
+    calibrate(model, upload(batch.images, dev), upload(batch.im_info, dev), head=True)
+    path = os.path.join(tmp, "VGG16_coco_seeded.npz")
+    export_chainer_npz({k: v.detach().cpu() for k, v in model.state_dict().items()}, path, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_coco_eval(dev, by_path, tmp):
+    """The evaluate CLI with ``--dataset coco`` on 16 synthetic images
+    (both canvas buckets, 800x1344 and 1344x800) written as a COCO tree
+    with crowd regions, from a seeded calibrated 81-class VGG-16 npz, at
+    batch 8 in float32 and bfloat16: per dtype one pass with the first call
+    of each kernel input shape (every K1 call) recorded and replayed through
+    the plain versions, one profiled pass, and the counted, timed pass
+    (K1 twice per detect call; finite AP, AP50 and AP75)."""
+    from trcnn_torch.cli import evaluate
+
+    img_dir, ann_file, n_crowd = write_coco_set(tmp, 16)
+    npz = coco_weights(dev, tmp, img_dir, ann_file)
+    img = coco_cfg().image
+    canvases = {(img.pad_h, img.pad_w), (img.pad_w, img.pad_h)}
+    phase(f"COCO evaluate CLI: 16 images, {n_crowd} crowd boxes, 80 sparse category ids, seeded "
+          f"calibrated 81-class VGG-16")
+    for dtype in ("float32", "bfloat16"):
+        argv = ["--dataset", "coco", "--dataset_root", img_dir, "--ann_file", ann_file,
+                "--pretrained_model", npz, "--batch_size", "8", "--dtype", dtype,
+                "--device", dev.type]
+        captured = {}
+        with recording(captured, first_of_shape=True):
+            quiet(evaluate.run, argv)
+        maps = {tuple(a[0].shape[1:3]) for a, _ in captured["stem"]}
+        if maps != canvases:
+            raise AssertionError(f"the COCO {dtype} evaluation gave K3 only {maps}")
+        widths = [(int(a[1].sum(-1).max()), a[1].shape[1]) for a, _ in captured["nms"]
+                  if a[4] is not None]
+        phase(f"  {dtype}: epilogue K1 calls (largest valid count, width after the trim): "
+              f"{widths}")
+        replay(captured, f"COCO {dtype} evaluation (first call of each K2 / K3 shape)")
+        del captured
+        busy = busy_over(lambda: quiet(evaluate.run, argv))
+        print_eval(f"COCO VGG-16 {dtype}",
+                   eval_path(f"vgg16 coco evaluate {dtype}", argv, by_path), busy)
+
+
+
 def main() -> int:
     import torch
 
@@ -1729,6 +2222,12 @@ def main() -> int:
         phase_eval(dev, by_path, npz, tmp)
         phase_train_cli(dev, by_path, npz, sd, tmp)
         phase_forward_cli(dev, by_path, npz, tmp)
+    phase_coco_kernels(dev, rec)
+    for backbone in BACKBONES:
+        by_path[f"{backbone} coco detect"] = phase_coco_detect(dev, backbone, rec)
+        by_path[f"{backbone} coco train"] = phase_coco_train(dev, backbone, rec)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_coco_eval(dev, by_path, tmp)
     phase(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],

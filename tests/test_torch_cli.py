@@ -24,8 +24,9 @@ import torch
 
 from tests.test_arrival_rehearsal import _write_voc_tree
 from tests.test_convert import _fake_chainer_tree
+from trcnn_torch import cli
 from trcnn_torch.cli import evaluate, forward, train
-from trcnn_torch.config import VOC_CLASSES, voc_config
+from trcnn_torch.config import VOC_CLASSES
 from trcnn_torch.convert_chainer import import_chainer_npz
 from trcnn_torch.data import VOCDetection
 from trcnn_torch.data.image import read_image
@@ -56,8 +57,8 @@ def files(tmp_path_factory):
     return d, npz, root, ids
 
 
-def _cfg(backbone="vgg16"):
-    return voc_config().replace(backbone=backbone, head_hidden=HIDDEN)
+def _cfg(backbone="vgg16", preset="voc"):
+    return cli.make_config(backbone, preset).replace(head_hidden=HIDDEN)
 
 
 @pytest.fixture(autouse=True)

@@ -26,7 +26,7 @@ from tests.test_eval import BOX, FAR, _record
 from trcnn_torch.config import VOC_CLASSES
 from trcnn_torch.data import DetectionLoader, SyntheticDetection
 from trcnn_torch.data.loader import upload
-from trcnn_torch.eval import Evaluator
+from trcnn_torch.eval import Evaluator, coco_eval
 from trcnn_torch.models import make_model, postprocess
 from trcnn_torch.train import TrainConfig, Trainer
 from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
@@ -138,7 +138,14 @@ def test_evaluator_detections_equal_the_port_detect(tiny):
     assert out["eval_mAP"] == voc_ap.voc_mean_ap(voc_ap.build_records(
         VOC_CLASSES, list(got.values()), ev.annotations()))[0]
     with pytest.raises(ValueError):
-        Evaluator(model, cfg, ds, metric="coco", device="cpu")
+        Evaluator(model, cfg, ds, metric="voc12", device="cpu")
+    # the COCO metric over the same detections
+    coco = Evaluator(model, cfg, ds, batch_size=2, score_thresh=0.0, metric="coco",
+                     device="cpu")(model)
+    assert set(coco) == {"eval_AP", "eval_AP50", "eval_AP75", "eval_seconds", "eval_images"}
+    want = coco_eval(list(got.values()), ev.annotations(), len(VOC_CLASSES))
+    assert (coco["eval_AP"], coco["eval_AP50"], coco["eval_AP75"]) == (
+        want["AP"], want["AP50"], want["AP75"])
 
 
 @pytest.mark.parametrize("total,n_batches,want", [(3, 3, [2, 3]), (10, 3, [2, 3])],

@@ -288,3 +288,85 @@ def test_small_config_training_step_matches_cpu(dev, backbone):
     the CPU's sampling draws (decisions and losses), then one step
     (gradients and updated parameters) on the card against the CPU."""
     _chip_smoke().phase_train_parity(dev, backbone)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_nms_kernel_at_the_coco_epilogue(dev, b):
+    """K1 at the COCO epilogue's width: 80 classes x 1000 RoIs = 80,000
+    grouped pairs per image, every pair valid in image 0 (the whole
+    triangle of 1250 x 1251 / 2 = 781,875 block pairs), image 1 a short
+    prefix; nms_padded's trimmed suppression equal to the plain version on
+    the same prefix and to the untrimmed kernel call."""
+    rng = np.random.default_rng(80 + b)
+    r, fg = 1000, 80
+    c = rng.uniform(0, 1300, (b, r, 2))
+    s = rng.uniform(16, 300, (b, r, 2))
+    rois = np.concatenate([c - s / 2, c + s / 2], -1)
+    boxes = rois[:, None] + rng.normal(0, 3, (b, fg, r, 4))
+    boxes[..., 2:] = np.maximum(boxes[..., 2:], boxes[..., :2])
+    boxes = torch.tensor(boxes.reshape(b, fg * r, 4), dtype=torch.float32, device=dev)
+    scores = torch.tensor(np.round(rng.uniform(0.06, 1, (b, fg * r)), 2), dtype=torch.float32,
+                          device=dev)
+    valid = torch.ones((b, fg * r), dtype=torch.bool, device=dev)
+    if b > 1:
+        valid[1] = torch.tensor(rng.uniform(0, 1, fg * r) < 0.05, device=dev)
+    groups = torch.arange(fg, dtype=torch.int32, device=dev).repeat_interleave(r).expand(b, -1)
+    groups = groups.contiguous()
+    captured = []
+    real = nms.greedy_keep_cuda
+
+    def record(*args):
+        captured.append(args)
+        return real(*args)
+
+    nms.greedy_keep_cuda = record
+    try:
+        ki, kv = nms.nms_padded(boxes, scores, valid, 0.3, 100, groups=groups)
+    finally:
+        nms.greedy_keep_cuda = real
+    (sb, sv, t, max_out, sg), = captured
+    assert sb.shape[1] == fg * r                       # image 0: every pair valid
+    pp, pv = nms.greedy_keep_plain(sb, sv, t, max_out, sg)
+    kp, kv2 = real(sb, sv, t, max_out, sg)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, pp) and torch.equal(kv2, pv)
+    assert int(kv[0].sum()) == 100
+    if b > 1:
+        # the short image alone is trimmed to its prefix: the same result
+        oi, ov = nms.nms_padded(boxes[1:], scores[1:], valid[1:], 0.3, 100, groups=groups[1:])
+        assert torch.equal(oi[0], ki[1]) and torch.equal(ov[0], kv[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,c", [(7, 512), (14, 1024)])
+def test_roi_pool_kernels_on_the_coco_map(dev, dtype, p, c):
+    """K2 and K4 on the COCO config's 50 x 84 map (and its portrait
+    transpose) at the VGG-16 and ResNet-101-C4 pools: bit-equal to the plain
+    versions, K4 with integer-valued gradients (exact sums in any order);
+    f32 takes K4's plan of 4 channels a block."""
+    for h, w in ((50, 84), (84, 50)):
+        rng = np.random.default_rng(p + c + h)
+        b, r = 2, 64
+        x1 = rng.uniform(-60, w * 16 + 30, (b, r))
+        y1 = rng.uniform(-60, h * 16 + 30, (b, r))
+        rois = np.stack([x1, y1, x1 + rng.uniform(0, w * 20, (b, r)),
+                         y1 + rng.uniform(0, h * 20, (b, r))], -1).astype(np.float32)
+        feat = torch.tensor(rng.integers(-8, 9, (b, h, w, c)), dtype=dtype, device=dev)
+        rois_t = torch.tensor(rois, device=dev)
+        k = roi_pool.roi_max_pool_cuda(feat, rois_t, p, 1 / 16)
+        assert torch.equal(_bits(k), _bits(roi_pool.roi_max_pool_plain(feat, rois_t, p, 1 / 16)))
+        g = torch.tensor(rng.integers(-4, 5, (b, r, p, p, c)), dtype=dtype, device=dev)
+        assert not roi_pool._bwd_plan(h, w, feat.element_size()).large
+        k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g, p)
+        assert torch.equal(_bits(k), _bits(roi_pool.roi_pool_backward_plain(feat, rois_t, g, p)))
+
+
+@pytest.mark.parametrize("shape", [(2, 800, 1344, 3), (1, 1344, 800, 3)])
+def test_stem_kernel_on_the_coco_canvas(dev, shape):
+    """K3 on the COCO config's 800 x 1344 canvas and its portrait
+    transpose: bit-equal to the plain version on integer inputs, in f32
+    and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _stem_args(np.random.default_rng(3), shape, True, dev, dtype)
+        assert torch.equal(_bits(stem.stem_block1_cuda(*args)),
+                           _bits(stem.stem_block1_plain(*args)))

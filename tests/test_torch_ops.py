@@ -164,19 +164,20 @@ def test_nms_matches_oracle(seed):
 
 
 def test_multiclass_nms_matches_jax():
+    """The single-call path (max_per_class >= max_total) and the per-class
+    path (10 per class, 50 in all) both equal JAX's."""
     rng = np.random.default_rng(8)
     r, c = 40, 6
     bx = np.repeat(_boxes(rng, r)[:, None, :], c, 1) + rng.normal(0, 2, (r, c, 4))
     bx = bx.astype(np.float32)
     sc = rng.dirichlet(np.ones(c), r).astype(np.float32)
     rv = rng.uniform(0, 1, r) > 0.1
-    want = jax_multiclass_nms(jnp.asarray(bx), jnp.asarray(sc), jnp.asarray(rv),
-                              0.3, 0.05, max_per_class=50, max_total=50)
-    got = nms.multiclass_nms(T(bx), T(sc), T(rv), 0.3, 0.05, 50, 50)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(NotImplementedError):
-        nms.multiclass_nms(T(bx), T(sc), T(rv), 0.3, 0.05, 10, 50)
+    for per_class in (50, 10):
+        want = jax_multiclass_nms(jnp.asarray(bx), jnp.asarray(sc), jnp.asarray(rv),
+                                  0.3, 0.05, max_per_class=per_class, max_total=50)
+        got = nms.multiclass_nms(T(bx), T(sc), T(rv), 0.3, 0.05, per_class, 50)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 # --------------------------------------------------------------- RoI pool

@@ -48,9 +48,10 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, trcnn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(trcnn_torch.__path__, 'trcnn_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 44, names\n"
+        "assert len(names) >= 46, names\n"
         "for n in ('cli.forward', 'cli.evaluate', 'cli.train', 'data.loader', 'eval.evaluator',\n"
-        "          'convert_chainer', 'convert_caffemodel', 'weights'):\n"
+        "          'convert_chainer', 'convert_caffemodel', 'weights', 'data.coco',\n"
+        "          'eval.coco_ap'):\n"
         "    assert 'trcnn_torch.' + n in names, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'trcnn', 'cv2', 'PIL')]\n"

@@ -1,7 +1,7 @@
 """Command-line entry points of the port, each ``python -m
 trcnn_torch.cli.<name>`` and ``main(argv=None)``: ``forward`` (one image ->
-detections), ``evaluate`` (a dataset -> VOC mAP and devkit files) and
-``train``.  They run on the card unless given ``--device cpu``.
+detections), ``evaluate`` (a dataset -> VOC mAP and devkit files, or COCO
+AP) and ``train``.  They run on the card unless given ``--device cpu``.
 
 Shared here: the flags every one of them has, and the device set-up.  In
 float32 (the default, bit-parity with the reference) TF32 is off for
@@ -15,7 +15,7 @@ import argparse
 
 import torch
 
-from trcnn_torch.config import FasterRCNNConfig, voc_config
+from trcnn_torch.config import FasterRCNNConfig, coco_config, voc_config
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -31,9 +31,12 @@ def add_common_flags(ap: argparse.ArgumentParser) -> None:
                     help="torch device: the card (default) or 'cpu'")
 
 
-def make_config(backbone: str) -> FasterRCNNConfig:
-    """The VOC config with ``backbone``."""
-    return voc_config().replace(backbone=backbone)
+PRESETS = {"voc": voc_config, "coco": coco_config}
+
+
+def make_config(backbone: str, preset: str = "voc") -> FasterRCNNConfig:
+    """The VOC or COCO config (``preset``) with ``backbone``."""
+    return PRESETS[preset]().replace(backbone=backbone)
 
 
 def setup_device(name: str, dtype: torch.dtype) -> torch.device:

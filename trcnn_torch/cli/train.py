@@ -5,11 +5,18 @@ training, Caffe-order MomentumSGD, lr 1e-3 x0.1 at 50k, 70k iterations).
     python -m trcnn_torch.cli.train --dataset_root /path/VOCdevkit/VOC2007 \
         --pretrained_model imagenet_vgg16.npz --out checkpoints/
 
+    python -m trcnn_torch.cli.train --dataset coco --coco_image_root /path/train2017 \
+        --coco_ann_file /path/instances_train2017.json --pretrained_model imagenet_vgg16.npz
+
 Any batch size (padded canvases, one per orientation bucket); checkpoints
 ``<out>/ckpt_<step>.pt`` with resume; ``--eval_every N`` runs a held-out
-VOC07 mAP every N steps and after the last.  ``--dataset_root`` repeats
-for a union (VOC07+12 trainval).  ``--dataset synthetic`` trains on the
-built-in synthetic set.  One device: the card unless ``--device cpu``.
+VOC07 mAP every N steps and after the last (on COCO's val set with
+``--dataset coco``, over its class names).  ``--dataset_root`` repeats for
+a union (VOC07+12 trainval).  ``--config`` picks the preset (classes,
+canvas, capacities, multi-scale shorter sides) and follows ``--dataset``
+by default; ``--dataset synthetic --config coco`` trains the 81-class
+recipe on the built-in synthetic set.  COCO training skips crowd boxes.
+One device: the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 
 from trcnn_torch.cli import DTYPES, add_common_flags, make_config, setup_device
 from trcnn_torch.convert_chainer import merge_params
-from trcnn_torch.data import ConcatDetection, DetectionLoader, SyntheticDetection, VOCDetection
+from trcnn_torch.data import (COCODetection, ConcatDetection, DetectionLoader,
+                              SyntheticDetection, VOCDetection)
 from trcnn_torch.eval import Evaluator
 from trcnn_torch.models.faster_rcnn import make_model
 from trcnn_torch.train.trainer import TrainConfig, Trainer
@@ -41,8 +49,17 @@ def parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     help="VOCdevkit/VOCxxxx root (--dataset voc); repeat it to train on the "
                          "union of several")
     ap.add_argument("--split", default="trainval")
-    ap.add_argument("--config", default="voc", choices=["voc", "coco"],
-                    help="hyperparameter preset (only voc in the port so far)")
+    ap.add_argument("--config", default=None, choices=["voc", "coco"],
+                    help="hyperparameter preset (classes, canvas, capacities, multi-scale); "
+                         "default: matches --dataset (synthetic uses voc)")
+    ap.add_argument("--coco_image_root", default=None,
+                    help="--dataset coco: directory with the image files (e.g. train2017/)")
+    ap.add_argument("--coco_ann_file", default=None,
+                    help="--dataset coco: instances_*.json path")
+    ap.add_argument("--coco_eval_image_root", default=None,
+                    help="--dataset coco: val image dir for --eval_every")
+    ap.add_argument("--coco_eval_ann_file", default=None,
+                    help="--dataset coco: val instances json for --eval_every")
     ap.add_argument("--out", default="result", help="checkpoint directory")
     ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--iters", type=int, default=None,
@@ -69,10 +86,14 @@ def parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     help="--dataset synthetic: the held-out set's size")
     add_common_flags(ap)
     args = ap.parse_args(argv)
-    if args.dataset == "coco" or args.config == "coco":
-        ap.error("COCO training comes with the COCO config (ROADMAP Queue 1 item 3)")
     if args.dataset == "voc" and not args.dataset_root:
         ap.error("--dataset voc requires --dataset_root")
+    if args.dataset == "coco" and not (args.coco_image_root and args.coco_ann_file):
+        ap.error("--dataset coco requires --coco_image_root and --coco_ann_file")
+    if args.dataset == "coco" and args.eval_every and not (
+            args.coco_eval_image_root and args.coco_eval_ann_file):
+        ap.error("--dataset coco with --eval_every requires --coco_eval_image_root and "
+                 "--coco_eval_ann_file")
     return args
 
 
@@ -81,7 +102,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = parse(argv)
     dtype = DTYPES[args.dtype]
     device = setup_device(args.device, dtype)
-    cfg = make_config(args.backbone)
+    cfg = make_config(args.backbone,
+                      args.config or ("coco" if args.dataset == "coco" else "voc"))
     overrides = {field: getattr(args, flag) for flag, field in _OPTIM_FLAGS.items()
                  if getattr(args, flag) is not None}
     if overrides:
@@ -90,6 +112,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     if args.dataset == "voc":
         parts = [VOCDetection(root, args.split) for root in args.dataset_root]
         ds = parts[0] if len(parts) == 1 else ConcatDetection(parts)
+    elif args.dataset == "coco":
+        ds = COCODetection(args.coco_image_root, args.coco_ann_file)
     else:
         ds = SyntheticDetection(n=512, num_classes=cfg.num_classes, seed=args.seed)
     print(f"dataset: {args.dataset} ({len(ds)} images), device: {device}", flush=True)
@@ -111,6 +135,9 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
         if args.dataset == "voc":
             # the held-out set is the first root's (VOC07 test, also for 07+12)
             eval_ds = VOCDetection(args.dataset_root[0], args.eval_split, use_difficult=True)
+        elif args.dataset == "coco":
+            eval_ds = COCODetection(args.coco_eval_image_root, args.coco_eval_ann_file,
+                                    use_crowd=True)
         else:
             eval_ds = SyntheticDetection(n=args.eval_synthetic_n, num_classes=cfg.num_classes,
                                          seed=args.seed + 1)

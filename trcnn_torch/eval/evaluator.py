@@ -7,10 +7,10 @@ caller asks for the CPU): the loader's canvases are uploaded from pinned
 memory, one ``detect`` and one ``postprocess`` run per batch without
 autograd, and the padded duplicates of a partial final batch are dropped.
 Ground truth comes from the annotations alone (no second image decode).
-It returns JAX's keys: ``eval_mAP``, ``eval_AP/<class>``,
-``eval_seconds``, ``eval_images``.  The COCO metric waits for the COCO
-slice; sharding the evaluation over several processes waits for the data
-parallel slice.
+It returns JAX's keys: ``eval_mAP`` and ``eval_AP/<class>`` (VOC), or
+``eval_AP``, ``eval_AP50`` and ``eval_AP75`` (COCO), then ``eval_seconds``
+and ``eval_images``.  Sharding the evaluation over several processes waits
+for the data parallel slice.
 """
 
 from __future__ import annotations
@@ -23,10 +23,11 @@ import torch
 
 from trcnn_torch.config import VOC_CLASSES, FasterRCNNConfig
 from trcnn_torch.data.loader import DetectionLoader, upload
+from trcnn_torch.eval.coco_ap import coco_eval
 from trcnn_torch.eval.voc_ap import build_records, voc_mean_ap
 from trcnn_torch.models.faster_rcnn import FasterRCNN, postprocess
 
-METRICS = ("voc07", "voc")
+METRICS = ("voc07", "voc", "coco")
 
 
 class _Subset:
@@ -56,8 +57,8 @@ class Evaluator:
     """Callable ``evaluator(model) -> {"eval_mAP": ..., ...}``.
 
     class_names: every class, background first (default: the dataset's
-    ``class_names``, else VOC's).  metric: "voc07" (11-point) or "voc"
-    (area under the curve).  After each call, ``detections`` holds
+    ``class_names``, else VOC's).  metric: "voc07" (11-point), "voc"
+    (area under the curve) or "coco" (AP@[.5:.95], crowd regions ignored).  After each call, ``detections`` holds
     :meth:`collect_detections`'s list and ``timing`` the seconds of the
     detection pass, of them those spent waiting on the loader and in
     detection (upload, detect, postprocess, the results back on the host),
@@ -68,8 +69,7 @@ class Evaluator:
                  batch_size: int = 8, limit: Optional[int] = None, metric: str = "voc07",
                  score_thresh: Optional[float] = None, device="cuda"):
         if metric not in METRICS:
-            raise ValueError(f"metric {metric!r}: the port evaluates {METRICS}; the COCO "
-                             "metric comes with the COCO config (ROADMAP Queue 1 item 3)")
+            raise ValueError(f"metric {metric!r}: the port evaluates {METRICS}")
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
@@ -142,10 +142,14 @@ class Evaluator:
     def __call__(self, model: Optional[FasterRCNN] = None) -> Dict[str, float]:
         t0 = time.time()
         self.detections = detections = self.collect_detections(model)
-        records = build_records(self.class_names, detections, self.annotations())
-        mean_ap, aps = voc_mean_ap(records, use_07_metric=self.metric == "voc07")
-        out = {"eval_mAP": mean_ap}
-        out.update({f"eval_AP/{k}": v for k, v in aps.items()})
+        if self.metric == "coco":
+            res = coco_eval(detections, self.annotations(), len(self.class_names))
+            out = {"eval_AP": res["AP"], "eval_AP50": res["AP50"], "eval_AP75": res["AP75"]}
+        else:
+            records = build_records(self.class_names, detections, self.annotations())
+            mean_ap, aps = voc_mean_ap(records, use_07_metric=self.metric == "voc07")
+            out = {"eval_mAP": mean_ap}
+            out.update({f"eval_AP/{k}": v for k, v in aps.items()})
         out["eval_seconds"] = time.time() - t0
         out["eval_images"] = float(len(detections))
         return out

@@ -10,7 +10,10 @@ of the first ``max_out`` survivors into indices plus a validity mask
 The suppression itself runs in :func:`greedy_keep`: on a CUDA tensor it
 launches kernel K1 (``csrc/nms.cu``), on a CPU tensor it runs
 :func:`greedy_keep_plain`, the plain PyTorch version the kernel is held
-against.
+against.  After ``nms_padded``'s score sort the valid entries of each
+image are a prefix, so the suppression sees only the batch's longest valid
+prefix (:func:`valid_prefix`): the COCO epilogue's 80 x 1000 (class, RoI)
+pairs per image would otherwise give K1 an 800 MB mask per image.
 """
 
 from __future__ import annotations
@@ -140,6 +143,18 @@ def greedy_keep(boxes, valid, iou_thresh, max_out, groups=None):
     raise ValueError(f"no NMS for device {boxes.device}")
 
 
+def valid_prefix(svalid: torch.Tensor) -> int:
+    """The suppression's width for score-sorted validity flags (B, N), whose
+    valid entries are each row's prefix: the longest row's valid count,
+    rounded up to K1's 64-box mask words, at least one word and at most N.
+    An invalid entry is never kept and never suppresses, so the entries
+    past it cannot change the result.  On the card this is one
+    device-to-host read."""
+    n = svalid.shape[-1]
+    longest = int(svalid.sum(-1).max()) if svalid.numel() else 0
+    return min(n, max(_BLOCK, -(-longest // _BLOCK) * _BLOCK))
+
+
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
                iou_thresh: float, max_out: int, presorted: bool = False,
                groups: Optional[torch.Tensor] = None
@@ -149,7 +164,10 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
     ``presorted``: the caller guarantees score order already (e.g. straight
     out of ``masked_topk_payload``), so the sort is skipped.  ``groups``:
-    optional (B, N) int32 ids; only same-group pairs suppress.
+    optional (B, N) int32 ids; only same-group pairs suppress.  After the
+    sort only the batch's longest valid prefix is suppressed
+    (:func:`valid_prefix`); presorted input is taken whole, with no read
+    back to the host.
 
     Returns (keep_idx (B, max_out) int32 indices into each image's inputs,
     score ordered, 0 in padding slots; keep_valid (B, max_out) bool).
@@ -169,14 +187,26 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     else:
         masked = torch.where(valid, scores.float(), _NEG_INF)
         neg, order = torch.sort(-masked, dim=-1, stable=True)
-        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
         svalid = -neg > _NEG_INF
+        n = valid_prefix(svalid)
+        order, svalid = order[:, :n], svalid[:, :n].contiguous()
+        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
         sgroups = torch.gather(groups, 1, order) if groups is not None else None
     keep_pos, keep_valid = greedy_keep(sboxes, svalid, iou_thresh, max_out,
                                        sgroups)
     keep_idx = keep_pos if order is None else torch.gather(order, 1, keep_pos.long())
     keep_idx = torch.where(keep_valid, keep_idx, 0).to(torch.int32)
     return keep_idx, keep_valid
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                iou_thresh: float, max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nms_padded`` over one leading batch axis (``trcnn/ops/nms.py:231``,
+    a ``jax.vmap`` there): boxes (B, N, 4), scores and valid (B, N); one K1
+    launch for the batch.  Returns (keep_idx, keep_valid), each (B, max_out)."""
+    if boxes.dim() != 3:
+        raise ValueError(f"batched_nms takes (B, N, 4) boxes, got {tuple(boxes.shape)}")
+    return nms_padded(boxes, scores, valid, iou_thresh, max_out)
 
 
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
@@ -190,15 +220,14 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tenso
     (B, D), det_classes (B, D) int32, det_valid (B, D)), D = max_total,
     score-sorted.
 
-    Only the single-call path is ported: with ``max_per_class >= max_total``
-    (the VOC and COCO test configs) per-class NMS + merge is exactly one
-    grouped greedy NMS over the flattened (class, roi) set, one K1 launch
-    for the batch.
+    With ``max_per_class >= max_total`` (the VOC and COCO test configs)
+    per-class NMS + merge is exactly one grouped greedy NMS over the
+    flattened (class, roi) set.  Otherwise each (image, class) row is its
+    own NMS down to ``max_per_class``, then the survivors of an image are
+    merged by a stable sort on score (``lax.top_k``'s order).  Either way
+    one K1 launch serves the batch: the grouped set's batch axis is B, the
+    per-class rows' is B * (C - class_offset).
     """
-    if max_per_class < max_total:
-        raise NotImplementedError(
-            "multiclass_nms with max_per_class < max_total (the per-class "
-            "path of trcnn/ops/nms.py) is not ported yet")
     if scores.dim() == 2:
         out = multiclass_nms(boxes[None], scores[None], valid[None], iou_thresh,
                              score_thresh, max_per_class, max_total, class_offset)
@@ -210,6 +239,9 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tenso
     cls_boxes = boxes[:, :, class_offset:, :].transpose(1, 2)    # (B, FG, R, 4)
     cls_scores = scores[:, :, class_offset:].transpose(1, 2)     # (B, FG, R)
     cls_valid = valid[:, None, :] & (cls_scores > score_thresh)
+    if max_per_class < max_total:
+        return _per_class_nms(cls_boxes, cls_scores, cls_valid, iou_thresh, max_per_class,
+                              max_total, class_offset)
     flat_boxes = cls_boxes.reshape(b, fg * r, 4)
     flat_scores = cls_scores.reshape(b, fg * r)
     flat_valid = cls_valid.reshape(b, fg * r)
@@ -223,3 +255,30 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tenso
                             torch.gather(flat_boxes, 1, k[..., None].expand(-1, -1, 4)), 0.0)
     det_classes = torch.where(keep_valid, keep_idx // r + class_offset, 0)
     return det_boxes, det_scores, det_classes.to(torch.int32), keep_valid
+
+
+def _per_class_nms(cls_boxes, cls_scores, cls_valid, iou_thresh, max_per_class, max_total,
+                   class_offset):
+    """``multiclass_nms``'s general path (``trcnn/ops/nms.py:327-349``) on
+    (B, FG, R, ...) class-major inputs: NMS per (image, class) row to
+    ``max_per_class``, then each image's FG x max_per_class survivors merged
+    into the ``max_total`` best, ties to the lower (class, slot) index."""
+    b, fg, r = cls_scores.shape
+    if fg * max_per_class < max_total:
+        raise ValueError(f"{fg} classes x {max_per_class} per class cannot fill {max_total}")
+    keep_idx, keep_valid = nms_padded(cls_boxes.reshape(b * fg, r, 4),
+                                      cls_scores.reshape(b * fg, r),
+                                      cls_valid.reshape(b * fg, r), iou_thresh, max_per_class)
+    k = keep_idx.long().reshape(b, fg, max_per_class)
+    g_boxes = torch.gather(cls_boxes, 2, k[..., None].expand(-1, -1, -1, 4))
+    g_scores = torch.where(keep_valid.reshape(b, fg, max_per_class),
+                           torch.gather(cls_scores.float(), 2, k), _NEG_INF)
+    flat_scores = g_scores.reshape(b, fg * max_per_class)
+    neg, top = torch.sort(-flat_scores, dim=-1, stable=True)
+    top, top_scores = top[:, :max_total], -neg[:, :max_total]
+    det_valid = top_scores > _NEG_INF
+    det_boxes = torch.gather(g_boxes.reshape(b, fg * max_per_class, 4), 1,
+                             top[..., None].expand(-1, -1, 4))
+    det_classes = torch.where(det_valid, top // max_per_class + class_offset, 0)
+    return (torch.where(det_valid[..., None], det_boxes, 0.0),
+            torch.where(det_valid, top_scores, 0.0), det_classes.to(torch.int32), det_valid)
