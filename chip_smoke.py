@@ -6,7 +6,7 @@
 Phases, one line each, any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the CUDA kernels K1-K4 from ``trcnn_torch/csrc``, all at once;
+2. build the CUDA kernels K1-K6 from ``trcnn_torch/csrc``, all at once;
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (K1 batched over 8 images, an empty and a short image
    among them; K2 and K4 also at the ResNet-101-C4 pool, P=14 on a
@@ -64,7 +64,20 @@ Phases, one line each, any failure raises and exits non-zero:
    each a counted path with its profile, peak memory, replayed kernel calls
    and, for detect, the epilogue on the model's own input; the evaluate CLI
    with ``--dataset coco`` on 16 images written as a COCO tree, f32 and
-   bf16.
+   bf16;
+10. the two opt-in model modes: K5 and K6 (RoIAlign forward and backward,
+    CUDA kernels for the JAX package's XLA RoIAlign) against their plain
+    versions, chunked over RoIs, at VGG-16 VOC (8, 300) P=7 C=512 and R101
+    COCO (8, 1000) P=14 C=1024, bf16 and f32 feat, K6 at 128 RoIs, with
+    times and bounds; the small configs of both backbones with RoIAlign on
+    the card against the CPU; the small int8 VGG-16 on the card against
+    the CPU (with an exact stem, no int8 code apart at any quantized
+    input); RoIAlign detect and train on VGG-16 VOC and on R101 COCO, each
+    a counted path with its profile, peak memory, replayed kernel calls,
+    and K5 / K6 checked and timed on the path's own inputs; int8 VGG-16
+    detect on VOC (a request and b=8) and COCO (b=8), counted, beside the
+    bf16 model of the same weights in turns, profiled, and each quantized
+    layer's int8 GEMM and whole int8 layer against its bf16 layer.
 
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
@@ -94,6 +107,11 @@ KERNELS = {
     # XLA pool there, trcnn/models/faster_rcnn.py:157-167)
     "roi_pool_bwd_large": ("trcnn_torch/csrc/roi_pool_bwd.cu",
                            "trcnn/ops/roi_pool_pallas.py:571"),
+    # RoIAlign: the JAX package computes it in XLA (no Pallas kernel), its
+    # backward by autodiff; K5 and K6 are CUDA kernels for that computation
+    "roi_align": ("trcnn_torch/csrc/roi_align.cu", "trcnn/ops/roi_align.py:25 (XLA)"),
+    "roi_align_bwd": ("trcnn_torch/csrc/roi_align_bwd.cu",
+                      "trcnn/ops/roi_align.py:25 (XLA autodiff)"),
 }
 # the kernels each main path launches; it must launch each of them and no
 # other (K3 is VGG-16's conv1 block only)
@@ -113,7 +131,13 @@ REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "resnet101 coco detect": ("nms", "roi_pool"),
             "resnet101 coco train": ("nms", "roi_pool", "roi_pool_bwd"),
             "vgg16 coco evaluate float32": ("nms", "roi_pool", "stem"),
-            "vgg16 coco evaluate bfloat16": ("nms", "roi_pool", "stem")}
+            "vgg16 coco evaluate bfloat16": ("nms", "roi_pool", "stem"),
+            "vgg16 align detect": ("nms", "roi_align", "stem"),
+            "vgg16 align train": ("nms", "roi_align", "roi_align_bwd", "stem"),
+            "resnet101 coco align detect": ("nms", "roi_align"),
+            "resnet101 coco align train": ("nms", "roi_align", "roi_align_bwd"),
+            "vgg16 int8 detect": ("nms", "roi_pool", "stem"),
+            "vgg16 coco int8 detect": ("nms", "roi_pool", "stem")}
 BACKBONES = ("vgg16", "resnet101")
 NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
@@ -388,9 +412,9 @@ def check_stem(args, what, exact=False):
 
 
 def bwd_limit(p):
-    """K4's tolerance against its plain output p with real-valued g: float32
-    within ROI_BWD_F32_RTOL of the largest |dfeat|, bfloat16 within one bf16
-    ulp of it (the atomics add in another order)."""
+    """K4's and K6's tolerance against their plain output p with real-valued
+    g: float32 within ROI_BWD_F32_RTOL of the largest |dfeat|, bfloat16
+    within one bf16 ulp of it (the atomics add in another order)."""
     import torch
 
     scale = float(p.float().abs().max())
@@ -779,16 +803,17 @@ def small_model(backbone: str, cfg, seed: int, images, info, head: bool):
     return model
 
 
-def phase_small_parity(dev, backbone: str):
+def phase_small_parity(dev, backbone: str, mode: str = "max"):
     """The small detect config through the port on the card and on the CPU
     with the same seeded weights, float32: VGG-16 on uint8 images with the
     init's head (score threshold 0.02), ResNet-101 on real-valued images
-    with its outputs spread (the config's threshold)."""
+    with its outputs spread (the config's threshold); ``mode`` is the RoI
+    mode ("max" or "align")."""
     import torch
 
     from trcnn_torch.models import make_model, postprocess
 
-    cfg = small_cfg(backbone)
+    cfg = with_mode(small_cfg(backbone), mode)
     rng = np.random.default_rng(42)
     if backbone == "vgg16":
         cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(42)).eval()
@@ -810,7 +835,7 @@ def phase_small_parity(dev, backbone: str):
         got = postprocess(raw, info.to(dev), cfg, score_thresh=thresh)
     got_raw = [t.cpu() for t in raw]
     got = [t.cpu() for t in got]
-    what = f"small {NAMES[backbone]} config"
+    what = f"small {NAMES[backbone]} config, RoI {mode}"
     if not torch.equal(got_raw[1], ref_raw.roi_valid):
         raise AssertionError(f"{what}: roi_valid differs between card and CPU")
     torch.testing.assert_close(got_raw[0], ref_raw.rois, rtol=1e-5, atol=1e-3)
@@ -991,16 +1016,20 @@ def train_step_parity(cpu, gpu, args, uniforms, proposals, what) -> None:
 # kernel-name fragments -> what they are, for the profile's breakdown
 KERNEL_GROUPS = (("trcnn_nms", "K1 nms"), ("roi_pool_fwd", "K2 roi_pool"),
                  ("roi_pool_bwd", "K4 roi_pool_bwd"), ("stem_", "K3 stem"),
+                 ("roi_align_fwd", "K5 roi_align"), ("roi_align_bwd", "K6 roi_align_bwd"),
+                 ("round_to_bf16", "K6 roi_align_bwd"), ("gemm_s8", "int8 GEMM"),
+                 ("imma", "int8 GEMM"),
                  ("gemm", "matmul/conv"), ("conv", "matmul/conv"), ("xmma", "matmul/conv"),
                  ("cutlass", "matmul/conv"), ("nvjet", "matmul/conv"), ("cudnn", "matmul/conv"))
 
 
-def profile_window(run, n, what, stages=()):
+def profile_window(run, n, what, stages=(), top_all=False):
     """``run`` n times under torch.profiler: device kernel time per call by
     group, the largest other kernels, and the device's busy share (the union
     of kernel intervals over the span from the first kernel's start to the
     last one's end).  ``stages`` names profiler spans that ``run`` opens;
-    each one's kernel time is printed (:func:`phase_split`).  Prints "no
+    each one's kernel time is printed (:func:`phase_split`); ``top_all``
+    also prints the largest kernels of every group by name.  Prints "no
     device time" if the profiler saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1032,6 +1061,13 @@ def profile_window(run, n, what, stages=()):
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     phase("    largest other kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    if top_all:
+        names = {}
+        for e in kernels:
+            names[e.name[:70]] = (names.get(e.name[:70], 0.0)
+                                  + (e.time_range.end - e.time_range.start) / 1e3 / n)
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+        phase("    largest kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
     if stages:
         phase_split(events, stages, n, sum(groups.values()))
 
@@ -1118,21 +1154,38 @@ def require_nms_launches(what, call, want):
     phase(f"  {what}: K1 launched {got} times in one call")
 
 
-def phase_slice(dev, backbone: str, rec):
+def with_mode(cfg, mode: str):
+    """``cfg`` with ``roi.mode`` set to ``mode`` ("max" or "align")."""
+    import dataclasses
+
+    return cfg.replace(roi=dataclasses.replace(cfg.roi, mode=mode))
+
+
+def path_name(backbone: str, kind: str, mode: str = "max", coco: bool = False) -> str:
+    """The ``REQUIRED`` key of a path: e.g. "resnet101 coco align train"."""
+    return " ".join([backbone] + ["coco"] * coco + [mode] * (mode != "max") + [kind])
+
+
+def phase_slice(dev, backbone: str, rec, mode: str = "max"):
     """The full-width detect path: 3 requests and a batch of 8 with the
     launch counts read, the latencies, the profile; for ResNet-101, K2
-    timed on the inputs of its batch of 8 (:func:`path_kernel_rows`)."""
+    timed on the inputs of its batch of 8 (:func:`path_kernel_rows`).
+    ``mode="align"``: the VOC config with RoIAlign (its im_info the
+    canvas minus 4 pixels at unit scale), K5 checked and timed on the
+    batch's own inputs (:func:`path_align_rows`)."""
     import torch
 
     from trcnn_torch import _build
+    from trcnn_torch.config import voc_config
     from trcnn_torch.entry import entry
 
     t0 = time.perf_counter()
-    fn, (model, image, im_info) = entry(dev, backbone=backbone)
+    cfg = None if mode == "max" else with_mode(voc_config().replace(backbone=backbone), mode)
+    fn, (model, image, im_info) = entry(dev, cfg=cfg, backbone=backbone)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    phase(f"slice: VOC {NAMES[backbone]} bf16, RoI pool {model.pool_size}, built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    phase(f"slice: VOC {NAMES[backbone]} bf16, RoI {model.cfg.roi.mode} {model.pool_size}, "
+          f"built in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(7)
     requests = [torch.randint(0, 256, image.shape, dtype=torch.uint8, generator=gen,
                               device=dev) for _ in range(3)]
@@ -1153,7 +1206,7 @@ def phase_slice(dev, backbone: str, rec):
     check_dets(dets8, 8)
     launches = dict(_build.launch_counts)
     phase(f"  launches over 3 requests + one batch of 8: {launches}")
-    require_launches(f"{backbone} detect", launches)
+    require_launches(path_name(backbone, "detect", mode), launches)
     for b, (x, info) in ((1, (requests[0], im_info)), (8, (images8, im_info8))):
         require_nms_launches(f"detect b={b}", lambda: fn(model, x, info), 2)
 
@@ -1175,7 +1228,10 @@ def phase_slice(dev, backbone: str, rec):
           f"{8 / statistics.median(b8):.2f} img/s")
     profile_window(lambda: fn(model, images8, im_info8), 3, "detect b=8")
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if backbone == "resnet101":
+    if mode == "align":
+        path_align_rows(rec, lambda: fn(model, images8, im_info8), f"{NAMES[backbone]} VOC "
+                        f"align detect b=8")
+    elif backbone == "resnet101":
         path_kernel_rows(rec, lambda: fn(model, images8, im_info8), "R101 detect b=8")
     else:
         # the trim's cost at the VOC shape: one read of a count per epilogue
@@ -1199,24 +1255,29 @@ def check_step(m, step):
     return vals
 
 
-def phase_train(dev, backbone: str, rec):
+def phase_train(dev, backbone: str, rec, mode: str = "max"):
     """The full-width training step through train_entry: one cold step, 6
     timed ones; the parameters move after the first, the frozen ones never;
     then 3 profiled steps, split into the step's own forward / backward /
     optimizer spans; for ResNet-101, K2 and K4 timed on one step's inputs
-    (:func:`path_kernel_rows`)."""
+    (:func:`path_kernel_rows`).  ``mode="align"``: the VOC config with
+    RoIAlign, K5 and K6 checked and timed on one step's own inputs
+    (:func:`path_align_rows`)."""
     import torch
 
     from trcnn_torch import _build
+    from trcnn_torch.config import voc_config
     from trcnn_torch.entry import train_entry
     from trcnn_torch.train.optim import is_frozen
     from trcnn_torch.train.step import STAGES
 
     t0 = time.perf_counter()
-    step_fn, (state, batch) = train_entry(dev, backbone=backbone)
+    cfg = None if mode == "max" else with_mode(voc_config().replace(backbone=backbone), mode)
+    step_fn, (state, batch) = train_entry(dev, cfg=cfg, backbone=backbone)
     torch.cuda.synchronize()
     model = state.model
-    phase(f"train: VOC {NAMES[backbone]} bf16 compute, f32 master weights, batch "
+    phase(f"train: VOC {NAMES[backbone]} RoI {model.cfg.roi.mode}, bf16 compute, f32 master "
+          f"weights, batch "
           f"{batch['images'].shape[0]} uint8 {tuple(batch['images'].shape[1:3])}, built in "
           f"{time.perf_counter() - t0:.1f} s")
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -1241,7 +1302,7 @@ def phase_train(dev, backbone: str, rec):
         raise AssertionError("a frozen parameter moved within 7 steps")
     phase(f"  launches over 7 train steps: {launches}; {len(frozen)} frozen parameters "
           f"unchanged")
-    require_launches(f"{backbone} train", launches)
+    require_launches(path_name(backbone, "train", mode), launches)
     require_nms_launches("train step b=8", lambda: step_fn(state, batch), 1)
     for i, v in enumerate(logs):
         phase(f"  step {i}: " + ", ".join(f"{k} {x:.5g}" for k, x in v.items()))
@@ -1251,7 +1312,10 @@ def phase_train(dev, backbone: str, rec):
     phase(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     profile_window(lambda: step_fn(state, batch), 3, "train step b=8", STAGES)
-    if backbone == "resnet101":
+    if mode == "align":
+        path_align_rows(rec, lambda: step_fn(state, batch), f"{NAMES[backbone]} VOC align "
+                        f"train b=8")
+    elif backbone == "resnet101":
         path_kernel_rows(rec, lambda: step_fn(state, batch), "R101 train b=8")
     del model, state, before
     torch.cuda.empty_cache()
@@ -1269,14 +1333,16 @@ def signature(args):
 def recording(captured, first_of_shape=False):
     """Wrap every kernel wrapper so that each call's inputs (cloned) and
     output land in ``captured[name]``; with ``first_of_shape``, only the
-    first K2, K3 and K4 call of each input signature (every K1 call)."""
+    first K2-K6 call of each input signature (every K1 call)."""
     import torch
 
-    from trcnn_torch.ops import nms, roi_pool, stem
+    from trcnn_torch.ops import nms, roi_align, roi_pool, stem
 
     targets = {"nms": (nms, "greedy_keep_cuda"), "roi_pool": (roi_pool, "roi_max_pool_cuda"),
                "roi_pool_bwd": (roi_pool, "roi_pool_backward_cuda"),
-               "stem": (stem, "stem_block1_cuda")}
+               "stem": (stem, "stem_block1_cuda"),
+               "roi_align": (roi_align, "roi_align_cuda"),
+               "roi_align_bwd": (roi_align, "roi_align_backward_cuda")}
     originals, seen = {}, set()
     for key, (mod, name) in targets.items():
         orig = originals[key] = getattr(mod, name)
@@ -1299,12 +1365,12 @@ def recording(captured, first_of_shape=False):
 
 
 def replay(captured, what):
-    """Each captured call through its plain version: K1 equal, K2 bit-equal,
-    K3 and K4 within their tolerances in the call's dtype (``stem_limit``,
-    ``bwd_limit``)."""
+    """Each captured call through its plain version: K1 equal, K2 and K5
+    bit-equal, K3, K4 and K6 within their tolerances in the call's dtype
+    (``stem_limit``, ``bwd_limit``)."""
     import torch
 
-    from trcnn_torch.ops import nms, roi_pool, stem
+    from trcnn_torch.ops import nms, roi_align, roi_pool, stem
 
     for args, (kp, kv) in captured.get("nms", []):
         pp, pv = nms.greedy_keep_plain(*args)
@@ -1313,9 +1379,15 @@ def replay(captured, what):
     for args, out in captured.get("roi_pool", []):
         if not torch.equal(bits(out), bits(roi_pool.roi_max_pool_plain(*args))):
             raise AssertionError(f"K2 differs from plain on the {what}'s inputs")
+    for args, out in captured.get("roi_align", []):
+        if not torch.equal(bits(out), bits(roi_align.roi_align_plain(*args))):
+            raise AssertionError(f"K5 differs from plain on the {what}'s inputs")
+        torch.cuda.empty_cache()
     worst = {}
     for key, plain, limit in (("stem", stem.stem_block1_plain, stem_limit),
-                              ("roi_pool_bwd", roi_pool.roi_pool_backward_plain, bwd_limit)):
+                              ("roi_pool_bwd", roi_pool.roi_pool_backward_plain, bwd_limit),
+                              ("roi_align_bwd", roi_align.roi_align_backward_plain,
+                               bwd_limit)):
         for args, out in captured.get(key, []):
             p = plain(*args)
             err, lim = float((out.float() - p.float()).abs().max()), limit(p)
@@ -1323,10 +1395,10 @@ def replay(captured, what):
                 raise AssertionError(f"{key} differs from plain on the {what}'s inputs "
                                      f"{signature(args)[0]}: {err} > {lim}")
             worst[key] = max(worst.get(key, 0.0), err / lim if lim else 0.0)
-    shapes = {k: sorted({str(signature(a)[0][0]) for a, _ in v}) for k, v in captured.items()
-              if k != "nms"}
+    shapes = {k: sorted({str(tuple(a[0].shape) if torch.is_tensor(a[0]) else a[0]) for a, _ in v})
+              for k, v in captured.items() if k != "nms"}
     phase(f"{what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())}; "
-          f"plain replay agrees (K1 equal, K2 bit-equal"
+          f"plain replay agrees (K1 equal, K2 and K5 bit-equal"
           + "".join(f", {k} at most {w:.2f} of its limit" for k, w in worst.items())
           + f"); feat shapes {shapes}")
 
@@ -1356,6 +1428,40 @@ def path_kernel_rows(rec, call, what):
             row = roi_row(kernel, shape, feat, rois, g, p)
             rec[key]["shapes"].append(row)
             rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+    del captured
+    torch.cuda.empty_cache()
+
+
+def path_align_rows(rec, call, what):
+    """One more call of an align path with K5's and K6's inputs recorded
+    (the first call of each input shape, after its launch counts were
+    read): each kernel checked against its plain version on them
+    (:func:`check_align`, :func:`check_align_bwd`) and timed on them
+    (:func:`align_row`); the rows join the kernel's ``shapes``."""
+    import torch
+
+    captured = {}
+    with recording(captured, first_of_shape=True):
+        call()
+        torch.cuda.synchronize()
+    for args, _ in captured.get("roi_align", []):
+        feat, rois, p = args[0], args[1], args[2]
+        shape = (f"{tuple(rois.shape[:2])} P={p} C={feat.shape[-1]} "
+                 f"{str(feat.dtype).split('.')[-1]} on {feat.shape[1]}x{feat.shape[2]} "
+                 f"({what} inputs)")
+        rec["roi_align"]["max_abs_err"] = max(rec["roi_align"]["max_abs_err"],
+                                              check_align(feat, rois, shape, p))
+        rec["roi_align"]["shapes"].append(align_row("K5", shape, feat, rois, out_size=p))
+        torch.cuda.empty_cache()
+    for args, _ in captured.get("roi_align_bwd", []):
+        fshape, fdtype, rois, g, p = args[:5]
+        feat = torch.empty(fshape, dtype=fdtype, device=g.device)
+        shape = (f"{tuple(rois.shape[:2])} P={p} C={fshape[-1]} {str(fdtype).split('.')[-1]} "
+                 f"on {fshape[1]}x{fshape[2]} ({what} inputs)")
+        rec["roi_align_bwd"]["max_abs_err"] = max(rec["roi_align_bwd"]["max_abs_err"],
+                                                  check_align_bwd(feat, rois, g, shape))
+        rec["roi_align_bwd"]["shapes"].append(align_row("K6", shape, feat, rois, g, p))
+        torch.cuda.empty_cache()
     del captured
     torch.cuda.empty_cache()
 
@@ -1754,10 +1860,10 @@ COCO_CATEGORY_IDS = tuple(i for i in range(1, 91)
                           if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
 
 
-def coco_cfg(backbone: str = "vgg16"):
+def coco_cfg(backbone: str = "vgg16", mode: str = "max"):
     from trcnn_torch.config import coco_config
 
-    return coco_config().replace(backbone=backbone)
+    return with_mode(coco_config().replace(backbone=backbone), mode)
 
 
 def host_ms(fn, n: int = 5) -> float:
@@ -1960,7 +2066,7 @@ def phase_coco_kernels(dev, rec):
     torch.cuda.empty_cache()
 
 
-def phase_coco_detect(dev, backbone: str, rec):
+def phase_coco_detect(dev, backbone: str, rec, mode: str = "max"):
     """The COCO detect path through ``entry(cfg=coco_config())``: seeded
     weights calibrated (:func:`calibrate`) so that the 81-way epilogue
     keeps detections, a one-image request and a batch of 8 uint8
@@ -1968,13 +2074,15 @@ def phase_coco_detect(dev, backbone: str, rec):
     call), latencies, the profile and peak memory; then one call with the
     first kernel call of each input shape (every K1 call) recorded and
     replayed through the plain versions, and the epilogue report on this
-    model's own batch (:func:`epilogue_report`)."""
+    model's own batch (:func:`epilogue_report`).  ``mode="align"``:
+    RoIAlign, and K5 checked and timed on the batch's own inputs
+    (:func:`path_align_rows`) instead of the epilogue report."""
     import torch
 
     from trcnn_torch import _build
     from trcnn_torch.entry import entry
 
-    cfg = coco_cfg(backbone)
+    cfg = coco_cfg(backbone, mode)
     t0 = time.perf_counter()
     fn, (model, image, im_info) = entry(dev, cfg=cfg)
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1985,8 +2093,8 @@ def phase_coco_detect(dev, backbone: str, rec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     phase(f"COCO detect: {NAMES[backbone]} bf16, 81 classes, uint8 {tuple(image.shape[1:3])}, "
-          f"{cfg.proposals.post_nms_topk_test} proposals, RoI pool {model.pool_size}, built and "
-          f"calibrated in {time.perf_counter() - t0:.1f} s")
+          f"{cfg.proposals.post_nms_topk_test} proposals, RoI {mode} {model.pool_size}, built "
+          f"and calibrated in {time.perf_counter() - t0:.1f} s")
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2000,7 +2108,7 @@ def phase_coco_detect(dev, backbone: str, rec):
     launches = dict(_build.launch_counts)
     phase(f"  launches over one request + one batch of 8: {launches}; detections per image "
           f"{dets8.valid.sum(-1).tolist()}, classes {len(set(dets8.classes[dets8.valid].tolist()))}")
-    require_launches(f"{backbone} coco detect", launches)
+    require_launches(path_name(backbone, "detect", mode, coco=True), launches)
     require_nms_launches("COCO detect b=8", lambda: fn(model, images8, im_info8), 2)
     warm = host_ms(lambda: fn(model, image, im_info), 3)
     b8 = host_ms(lambda: fn(model, images8, im_info8), 3)
@@ -2012,8 +2120,15 @@ def phase_coco_detect(dev, backbone: str, rec):
     with recording(captured, first_of_shape=True):
         fn(model, images8, im_info8)
         torch.cuda.synchronize()
-    replay(captured, f"bf16 {NAMES[backbone]} COCO detect b=8")
+    replay(captured, f"bf16 {NAMES[backbone]} COCO {mode} detect b=8")
     del captured
+    torch.cuda.empty_cache()
+    if mode == "align":
+        path_align_rows(rec, lambda: fn(model, images8, im_info8),
+                        f"{NAMES[backbone]} COCO align detect b=8")
+        del model
+        torch.cuda.empty_cache()
+        return launches
     with torch.inference_mode():
         raw = model.detect(images8, im_info8)
     epilogue_report(raw, im_info8, cfg, f"{NAMES[backbone]} calibrated", rec)
@@ -2022,14 +2137,16 @@ def phase_coco_detect(dev, backbone: str, rec):
     return launches
 
 
-def phase_coco_train(dev, backbone: str, rec):
+def phase_coco_train(dev, backbone: str, rec, mode: str = "max"):
     """The COCO training step through ``train_entry(cfg=coco_config())`` on
     the loader's batches: ``SyntheticDetection`` (81 classes) at batch 8,
     multi-scale shorter sides drawn per image, uint8 canvases; one cold
     step and 4 timed ones; the parameters move after the first, the frozen
     ones never; K1 exactly once per step; the profile split and peak
     memory; then one step with the first kernel call of each input shape
-    recorded and replayed through the plain versions."""
+    recorded and replayed through the plain versions.  ``mode="align"``:
+    RoIAlign, and K5 and K6 checked and timed on one step's own inputs
+    (:func:`path_align_rows`)."""
     import torch
 
     from trcnn_torch import _build
@@ -2039,7 +2156,7 @@ def phase_coco_train(dev, backbone: str, rec):
     from trcnn_torch.train.step import STAGES
     from trcnn_torch.train.trainer import to_device
 
-    cfg = coco_cfg(backbone)
+    cfg = coco_cfg(backbone, mode)
     t0 = time.perf_counter()
     step_fn, (state, _) = train_entry(dev, cfg=cfg)
     loader = DetectionLoader(SyntheticDetection(n=40, num_classes=cfg.num_classes, seed=5),
@@ -2050,7 +2167,8 @@ def phase_coco_train(dev, backbone: str, rec):
     torch.cuda.synchronize()
     canvases = sorted({tuple(b["images"].shape[1:3]) for b in batches})
     scales = sorted({round(float(s), 4) for b in batches for s in b["im_info"][:, 2].tolist()})
-    phase(f"COCO train: {NAMES[backbone]} bf16 compute, f32 master weights, {len(batches)} loader "
+    phase(f"COCO train: {NAMES[backbone]} RoI {mode}, bf16 compute, f32 master weights, "
+          f"{len(batches)} loader "
           f"batches of 8, canvases {canvases}, {len(scales)} image scales {scales[0]}-{scales[-1]}, "
           f"built in {time.perf_counter() - t0:.1f} s")
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -2075,7 +2193,7 @@ def phase_coco_train(dev, backbone: str, rec):
     del before
     phase(f"  launches over {len(times)} train steps: {launches}; {len(frozen)} frozen parameters "
           f"unchanged")
-    require_launches(f"{backbone} coco train", launches)
+    require_launches(path_name(backbone, "train", mode, coco=True), launches)
     require_nms_launches("COCO train step b=8", lambda: step_fn(state, batches[0]), 1)
     warm = statistics.median(times[1:])
     phase(f"  step ms: cold {times[0]:.2f}, warm {', '.join(f'{t:.2f}' for t in times[1:])}; "
@@ -2087,9 +2205,14 @@ def phase_coco_train(dev, backbone: str, rec):
         for batch in batches:
             step_fn(state, batch)
         torch.cuda.synchronize()
-    replay(captured, f"bf16 {NAMES[backbone]} COCO train steps (first call of each kernel "
-                     f"input shape)")
-    del captured, model, state, batches
+    replay(captured, f"bf16 {NAMES[backbone]} COCO {mode} train steps (first call of each "
+                     f"kernel input shape)")
+    del captured
+    torch.cuda.empty_cache()
+    if mode == "align":
+        path_align_rows(rec, lambda: step_fn(state, batches[2]),
+                        f"{NAMES[backbone]} COCO align train b=8")
+    del model, state, batches
     torch.cuda.empty_cache()
     return launches
 
@@ -2190,6 +2313,348 @@ def phase_coco_eval(dev, by_path, tmp):
 
 
 
+# ---------------------------------------------------------------- RoIAlign and int8
+
+
+def align_case(b: int, r: int, seed: int, fh=38, fw=64, c=512):
+    """:func:`roi_case`'s RoIs (beyond the map: every sample clipped to
+    its last cell; partly outside; one cell, which ``max(., 1)`` widens to
+    a whole cell) plus a RoI under one cell (half a cell wide, a quarter
+    high)."""
+    feat, rois = roi_case(b, r, seed, fh, fw, c)
+    rois[:, 5] = (101, 203, 109, 207)
+    return feat, rois
+
+
+def check_align(feat, rois, what, out_size=7):
+    """K5 against its plain version: bit-equal (the same float32 operations
+    in the same order, none contracted)."""
+    import torch
+
+    from trcnn_torch.ops import roi_align
+
+    k = roi_align.roi_align_cuda(feat, rois, out_size)
+    p = roi_align.roi_align_plain(feat, rois, out_size)
+    err = float((k - p).abs().max())
+    if not torch.equal(bits(k), bits(p)):
+        raise AssertionError(f"K5 is not bit-equal to the plain version: {what}, "
+                             f"max abs err {err:.3e}")
+    phase(f"  K5 {what}: bit-equal")
+    return err
+
+
+def check_align_bwd(feat, rois, g, what):
+    """K6 twice against its plain version (:func:`bwd_limit`: float32
+    atomics add in a run-dependent order, and K6 merges a bin's samples per
+    cell before it adds); the two kernel runs' largest difference is
+    printed."""
+    from trcnn_torch.ops import roi_align
+
+    p_ = g.shape[2]
+    k = roi_align.roi_align_backward_cuda(feat.shape, feat.dtype, rois, g, p_)
+    k2 = roi_align.roi_align_backward_cuda(feat.shape, feat.dtype, rois, g, p_)
+    p = roi_align.roi_align_backward_plain(feat.shape, feat.dtype, rois, g, p_)
+    err = float((k.float() - p.float()).abs().max())
+    rerun = float((k.float() - k2.float()).abs().max())
+    limit = bwd_limit(p)
+    phase(f"  K6 {what}: max abs err {err:.3e} (limit {limit:.3e} at scale "
+          f"{float(p.float().abs().max()):.3e}); two kernel runs differ by {rerun:.3e}")
+    if err > limit:
+        raise AssertionError(f"K6 disagrees with the plain version: {what}")
+    return err
+
+
+def align_row(kernel, what, feat, rois, g=None, out_size=7, plain_iters=1):
+    """K5 (g None) or K6 at one shape: the kernel's time, its share of the
+    bound, the plain version's time and the bound from this run's inputs.
+    Bytes: inputs read once, the output written once (K5 float32, K6 in
+    feat's dtype).  Operations: per sample, channel and corner a product of
+    two weights and an add (3), per bin the mean (1 per channel): K5 reads
+    and K6 writes 4 s^2 corners per bin, s = 2."""
+    from trcnn_torch.ops import roi_align
+
+    b, h, w, c = feat.shape
+    r = rois.shape[1]
+    bins = b * r * out_size * out_size
+    ops = bins * c * (3.0 * 4 * 4 + 1)
+    wu = int(plain_iters > 1)
+    if g is None:
+        ms = cuda_time_ms(lambda: roi_align.roi_align_cuda(feat, rois, out_size))
+        plain_ms = cuda_time_ms(lambda: roi_align.roi_align_plain(feat, rois, out_size),
+                                warmup=wu, iters=plain_iters)
+        bd = bound(nbytes(feat, rois) + bins * c * 4, ops, F32_OPS)
+    else:
+        ms = cuda_time_ms(lambda: roi_align.roi_align_backward_cuda(
+            feat.shape, feat.dtype, rois, g, out_size))
+        plain_ms = cuda_time_ms(lambda: roi_align.roi_align_backward_plain(
+            feat.shape, feat.dtype, rois, g, out_size), warmup=wu, iters=plain_iters)
+        bd = bound(nbytes(rois, g, feat), ops, F32_OPS)
+    share = bd["bound_ms"] / ms * 100
+    phase(f"  {kernel} time at {what}: kernel {ms:.4f} ms ({share:.1f}% of bound), plain "
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return dict(shape=what, ms=ms, plain_ms=plain_ms, pct_of_bound=share, **bd)
+
+
+def phase_align_kernels(dev, rec):
+    """K5 and K6 against their plain versions (chunked over RoIs) at the
+    align paths' shapes, with times and bounds: VGG-16 VOC (8, 300) P=7
+    C=512 on 38 x 64 and R101 COCO (8, 1000) P=14 C=1024 on 50 x 84, bf16
+    and f32 feat; K6 at each config's training RoI count (8, 128); the
+    clipped, beyond-the-map, one-cell and sub-cell RoIs of
+    :func:`align_case` in every case; a ragged small case (C = 36, not a
+    multiple of the vector) too."""
+    import torch
+
+    phase("RoIAlign kernels (K5 forward, K6 backward) vs plain versions:")
+    err5 = err6 = 0.0
+    rows5, rows6 = [], []
+    feat, rois = align_case(2, 37, 80, fh=9, fw=13, c=36)
+    rois_t = torch.from_numpy(rois).to(dev)
+    g = torch.from_numpy(np.random.default_rng(81).standard_normal(
+        (2, 37, 7, 7, 36)).astype(np.float32)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        feat_t = torch.from_numpy(feat).to(dev, dt)
+        err5 = max(err5, check_align(feat_t, rois_t, f"ragged (2,37) P=7 C=36 9x13 {dt}"))
+        err6 = max(err6, check_align_bwd(feat_t, rois_t, g, f"ragged (2,37) P=7 C=36 9x13 {dt}"))
+    for what, (fh, fw), p, c, r, seed in (("VGG VOC", (38, 64), 7, 512, 300, 82),
+                                          ("R101 COCO", COCO_MAP, 14, 1024, 1000, 84)):
+        feat, rois = align_case(8, r, seed, fh=fh, fw=fw, c=c)
+        rois_t = torch.from_numpy(rois).to(dev)
+        rois128 = rois_t[:, :128].contiguous()
+        g = torch.randn((8, 128, p, p, c), generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            feat_t = torch.from_numpy(feat).to(dev, dt)
+            shape = f"(8,{r}) P={p} C={c} {name}, {what} {fh}x{fw} map"
+            err5 = max(err5, check_align(feat_t, rois_t, shape, p))
+            torch.cuda.empty_cache()
+            rows5.append(align_row("K5", shape, feat_t, rois_t, out_size=p))
+            torch.cuda.empty_cache()
+            shape = f"(8,128) P={p} C={c} {name}, {what} {fh}x{fw} map"
+            err6 = max(err6, check_align_bwd(feat_t, rois128, g, shape))
+            rows6.append(align_row("K6", shape, feat_t, rois128, g, p))
+            del feat_t
+            torch.cuda.empty_cache()
+        del g
+    main = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # the records keep the R101 COCO bf16 row: the largest call on a main path
+    rec["roi_align"] = dict(max_abs_err=err5, library_ms=None, shapes=rows5,
+                            **{k: rows5[2][k] for k in main})
+    rec["roi_align_bwd"] = dict(max_abs_err=err6, library_ms=None, shapes=rows6,
+                                **{k: rows6[2][k] for k in main})
+
+
+def int8_small_model(dev, stem: str, rng):
+    """The small VGG-16 config's int8 model, float32 compute, on the CPU and
+    on the card with the same seeded weights, and its images: with
+    ``stem="exact"``, integer-valued images and conv1_1 / conv1_2 kernels
+    (float32 sums exact in any order, so K3 and the CPU's stem agree bit
+    for bit); "seeded", the init's weights on real-valued images."""
+    import torch
+
+    from trcnn_torch.models import make_model
+
+    cfg = small_cfg("vgg16")
+    cpu = make_model(cfg, device="cpu", quant="int8").init(torch.Generator().manual_seed(45))
+    if stem == "exact":
+        with torch.no_grad():
+            cpu.extractor.conv1_1.weight.copy_(torch.from_numpy(
+                rng.integers(-2, 3, (64, 3, 3, 3)).astype(np.float32)))
+            cpu.extractor.conv1_2.weight.copy_(torch.from_numpy(
+                (rng.integers(-2, 3, (64, 64, 3, 3)) / 16).astype(np.float32)))
+        images = rng.integers(-8, 9, (2, 64, 96, 3)).astype(np.float32)
+    else:
+        images = (rng.standard_normal((2, 64, 96, 3)) * 40).astype(np.float32)
+    gpu = make_model(cfg, device=dev, quant="int8")
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu.eval(), gpu.eval(), torch.from_numpy(images)
+
+
+def phase_int8_small(dev):
+    """int8 detect on the card against the port's CPU int8 detect on the
+    small VGG-16 config, float32 compute, with every quantized input's
+    codes recorded on both sides.  "exact" stem: no code apart at any of
+    the 13 quantized inputs (the int8 products are exact, the scales and
+    the dequantization the same float32 operations), proposals within
+    1e-3 pixels, cls_prob within 1e-4 relative, the detections' validity
+    and classes equal.  "seeded" stem: the stems differ in the last bits,
+    the codes apart are printed per layer, and cls_prob is held within 1e-2
+    and bbox_pred within 5e-2 of their largest magnitude (the CPU test's
+    tolerances for the same effect against JAX)."""
+    import torch
+
+    from trcnn_torch.models import postprocess
+    from trcnn_torch.ops import quant
+
+    rng = np.random.default_rng(46)
+    info = torch.tensor([[60.0, 90.0, 1.2], [64.0, 80.0, 1.0]])
+    for stem in ("exact", "seeded"):
+        cfg, cpu, gpu, images = int8_small_model(dev, stem, rng)
+        codes, outs = {}, {}
+        real = quant.quantize_tensor
+        for side, model, x, i in (("cpu", cpu, images, info),
+                                  ("card", gpu, images.to(dev), info.to(dev))):
+            codes[side] = []
+
+            def record(t, _codes=codes[side]):
+                q, sc = real(t)
+                _codes.append(q.cpu())
+                return q, sc
+
+            quant.quantize_tensor = record
+            try:
+                with torch.no_grad():
+                    raw = model.detect(x, i)
+                    dets = postprocess(raw, i, cfg, score_thresh=0.02)
+            finally:
+                quant.quantize_tensor = real
+            outs[side] = ([t.cpu() for t in raw], [t.cpu() for t in dets])
+        apart = [int((a != b).sum()) for a, b in zip(codes["cpu"], codes["card"])]
+        (raw_c, det_c), (raw_g, det_g) = outs["cpu"], outs["card"]
+        what = f"small VGG-16 int8, {stem} stem"
+        if len(apart) != 13 or not torch.equal(raw_g[1], raw_c[1]):
+            raise AssertionError(f"{what}: {len(apart)} quantized inputs, proposals' validity "
+                                 f"{'equal' if torch.equal(raw_g[1], raw_c[1]) else 'differs'}")
+        rel = [float((g - c).abs().max()) / float(c.abs().max()) for g, c in
+               ((raw_g[2], raw_c[2]), (raw_g[3], raw_c[3]))]
+        if stem == "exact":
+            if any(apart):
+                raise AssertionError(f"{what}: codes apart per quantized input {apart}")
+            torch.testing.assert_close(raw_g[0], raw_c[0], rtol=1e-5, atol=1e-3)
+            torch.testing.assert_close(raw_g[2], raw_c[2], rtol=1e-4, atol=1e-5)
+            if not (torch.equal(det_g[3], det_c[3]) and torch.equal(det_g[2], det_c[2])):
+                raise AssertionError(f"{what}: detections differ between card and CPU")
+        elif rel[0] > 1e-2 or rel[1] > 5e-2:
+            raise AssertionError(f"{what}: cls_prob {rel[0]:.2e}, bbox_pred {rel[1]:.2e} apart; "
+                                 f"codes apart per quantized input {apart}")
+        phase(f"{what}: card vs CPU, int8 codes apart at the 13 quantized inputs {apart}; "
+              f"cls_prob {rel[0]:.2e}, bbox_pred {rel[1]:.2e} of their largest apart; "
+              f"{int(det_c[3].sum())} CPU detections, "
+              f"{'equal' if torch.equal(det_g[3], det_c[3]) else 'not compared'}")
+
+
+def int8_layer_rows(mq, mb, images8, info8, what):
+    """Each quantized layer of one int8 b=8 call, on its own input (bf16,
+    recorded): the int8 GEMM alone (cuBLASLt), the whole int8 layer
+    (quantize, im2col, GEMM, dequantize with the bias) and the bf16 layer
+    of the bf16 model on the same input (cuDNN's convolution + bias, or
+    cuBLAS's dense + bias), CUDA events; with the int8 GEMM's share of its
+    bound (operations at 1,979 TOP/s, or its bytes)."""
+    import torch
+
+    from trcnn_torch.models import roi_head, vgg16
+    from trcnn_torch.ops import quant
+
+    seen = []
+    real_c, real_d = vgg16.qconv2d, roi_head.qdense
+    vgg16.qconv2d = lambda x, layer: (seen.append(("conv", x.clone(), layer)), real_c(x, layer))[1]
+    roi_head.qdense = lambda x, layer: (seen.append(("dense", x.clone(), layer)), real_d(x, layer))[1]
+    try:
+        with torch.inference_mode():
+            mq.detect(images8, info8)
+        torch.cuda.synchronize()
+    finally:
+        vgg16.qconv2d, roi_head.qdense = real_c, real_d
+    names = {id(m): n for n, m in mq.named_modules()}
+    bf16 = dict(mb.named_modules())
+    total = {"gemm": 0.0, "int8": 0.0, "bf16": 0.0}
+    phase(f"  int8 layers at {what}, ms (CUDA events): int8 GEMM / whole int8 layer / bf16 layer")
+    with torch.inference_mode():
+        for kind, x, layer in seen:
+            name = names[id(layer)]
+            wq, _ = quant.weight_codes(layer)
+            xq, _ = quant.quantize_tensor(x)
+            if kind == "conv":
+                a = quant.im2col(xq, *layer.kernel_size, layer.padding)
+                xb = x.permute(0, 3, 1, 2)                  # the bf16 trunk's channels-last view
+                ref = lambda: vgg16.conv_nchw(xb, bf16[name], relu=False)  # noqa: E731
+                whole = lambda: quant.qconv2d(x, layer)  # noqa: E731
+            else:
+                a = xq
+                ref = lambda: roi_head.dense(x, bf16[name])  # noqa: E731
+                whole = lambda: quant.qdense(x, layer)  # noqa: E731
+            gemm = cuda_time_ms(lambda: quant.int8_matmul(a, wq), warmup=2, iters=10)
+            ms_int8 = cuda_time_ms(whole, warmup=2, iters=10)
+            ms_bf16 = cuda_time_ms(ref, warmup=2, iters=10)
+            m, k, n = a.shape[0], a.shape[1], wq.shape[0]
+            bd = bound(nbytes(a, wq) + m * n * 4, 2.0 * m * k * n, 1979e12)
+            for key, v in (("gemm", gemm), ("int8", ms_int8), ("bf16", ms_bf16)):
+                total[key] += v
+            phase(f"    {name.split('.')[-1]} ({m}x{k})x({k}x{n}): {gemm:.4f} / {ms_int8:.4f} / "
+                  f"{ms_bf16:.4f}; GEMM {bd['bound_ms'] / gemm * 100:.1f}% of its bound "
+                  f"({bd['bound_by']}), {2.0 * m * k * n / gemm / 1e9:.1f} TOP/s")
+            del a
+    phase(f"    sum over the {len(seen)} layers: int8 GEMMs {total['gemm']:.3f} ms, whole int8 "
+          f"layers {total['int8']:.3f} ms, bf16 layers {total['bf16']:.3f} ms")
+    del seen
+    torch.cuda.empty_cache()
+
+
+def phase_int8(dev, by_path):
+    """The int8 VGG-16 detect path at full width through
+    ``entry(quant="int8")`` (weights kept float32, as bench.py does), on the
+    VOC config (a request and a batch of 8) and on the COCO config (a
+    batch of 8, calibrated weights): each a counted path; beside the bf16
+    model of the same weights in the same call, in turns (bf16, int8,
+    int8, bf16, medians of 3 calls each); profiles of both; peak memory;
+    each quantized layer against its bf16 layer (:func:`int8_layer_rows`);
+    and the share of int8 detections whose class agrees with bf16's."""
+    import torch
+
+    from trcnn_torch import _build
+    from trcnn_torch.entry import entry
+
+    for coco in (False, True):
+        cfg = coco_cfg() if coco else None
+        what = "COCO" if coco else "VOC"
+        fq, (mq, image, info) = entry(dev, cfg=cfg, quant="int8")
+        fb, (mb, _, _) = entry(dev, cfg=cfg)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        images8 = torch.randint(0, 256, (8,) + image.shape[1:], dtype=torch.uint8,
+                                generator=gen, device=dev)
+        info8 = info.expand(8, 3).contiguous()
+        if coco:
+            calibrate(mq, images8[:2], info8[:2], head=True)
+        mb.load_state_dict(mq.state_dict())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        path = path_name("vgg16", "detect", "int8", coco)
+        _build.reset_launch_counts()
+        if not coco:
+            check_dets(fq(mq, image, info), 1)
+        dets8 = fq(mq, images8, info8)
+        torch.cuda.synchronize()
+        check_dets(dets8, 8)
+        launches = dict(_build.launch_counts)
+        require_launches(path, launches)
+        by_path[path] = launches
+        require_nms_launches(f"int8 {what} detect b=8", lambda: fq(mq, images8, info8), 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        arms = {"bf16": lambda: fb(mb, images8, info8), "int8": lambda: fq(mq, images8, info8)}
+        ms = {"bf16": [], "int8": []}
+        for arm in ("bf16", "int8", "int8", "bf16"):
+            ms[arm].append(host_ms(arms[arm], 3))
+        req = ""
+        if not coco:
+            req = (f"; request int8 {host_ms(lambda: fq(mq, image, info), 3):.2f} ms, bf16 "
+                   f"{host_ms(lambda: fb(mb, image, info), 3):.2f} ms")
+        with torch.inference_mode():
+            db = fb(mb, images8, info8)
+        both = dets8.valid & db.valid
+        agree = int((dets8.classes[both] == db.classes[both]).sum())
+        phase(f"int8 {what} VGG-16 detect: launches {launches}; b=8 int8 "
+              f"{', '.join(f'{t:.2f}' for t in ms['int8'])} ms, bf16 "
+              f"{', '.join(f'{t:.2f}' for t in ms['bf16'])} ms (in turns){req}; peak "
+              f"{peak:.2f} GiB; detections per image {dets8.valid.sum(-1).tolist()}, classes "
+              f"equal to bf16's in {agree} of the {int(both.sum())} slots valid in both")
+        profile_window(arms["int8"], 2, f"int8 {what} detect b=8", top_all=True)
+        profile_window(arms["bf16"], 2, f"bf16 {what} detect b=8 (same weights)", top_all=True)
+        int8_layer_rows(mq, mb, images8, info8, f"{what} b=8")
+        del mq, mb, fq, fb, arms, dets8, db
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2228,6 +2693,16 @@ def main() -> int:
         by_path[f"{backbone} coco train"] = phase_coco_train(dev, backbone, rec)
     with tempfile.TemporaryDirectory() as tmp:
         phase_coco_eval(dev, by_path, tmp)
+    # the two opt-in model modes: RoIAlign (K5, K6) and int8
+    phase_align_kernels(dev, rec)
+    for backbone in BACKBONES:
+        phase_small_parity(dev, backbone, "align")
+    phase_int8_small(dev)
+    by_path["vgg16 align detect"] = phase_slice(dev, "vgg16", rec, "align")
+    by_path["vgg16 align train"] = phase_train(dev, "vgg16", rec, "align")
+    by_path["resnet101 coco align detect"] = phase_coco_detect(dev, "resnet101", rec, "align")
+    by_path["resnet101 coco align train"] = phase_coco_train(dev, "resnet101", rec, "align")
+    phase_int8(dev, by_path)
     phase(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],

@@ -1,4 +1,5 @@
-"""Kernels K1-K4 against their plain PyTorch versions on the card.
+"""Kernels K1-K6 against their plain PyTorch versions on the card, and the
+int8 products of the int8 mode against the CPU.
 
 These need a CUDA device and the CUDA toolkit; without a card they skip.
 The file imports no JAX, so on the card it runs without the repository's
@@ -23,7 +24,7 @@ import pytest
 import torch
 
 from trcnn_torch import _build
-from trcnn_torch.ops import nms, roi_pool, stem
+from trcnn_torch.ops import nms, quant, roi_align, roi_pool, stem
 
 pytestmark = pytest.mark.gpu
 
@@ -370,3 +371,96 @@ def test_stem_kernel_on_the_coco_canvas(dev, shape):
         args = _stem_args(np.random.default_rng(3), shape, True, dev, dtype)
         assert torch.equal(_bits(stem.stem_block1_cuda(*args)),
                            _bits(stem.stem_block1_plain(*args)))
+
+
+def _align_rois(rng, b, r, h, w):
+    """Random RoIs, plus one beyond the map (every sample clipped to the
+    last cell), one over the whole map and past it, one under one cell and
+    one of zero size."""
+    x1 = rng.uniform(-60, w * 16 + 30, (b, r))
+    y1 = rng.uniform(-60, h * 16 + 30, (b, r))
+    rois = np.stack([x1, y1, x1 + rng.uniform(0, w * 20, (b, r)),
+                     y1 + rng.uniform(0, h * 20, (b, r))], -1)
+    rois[:, 0] = (w * 16 + 50, h * 16 + 20, w * 16 + 90, h * 16 + 60)
+    rois[:, 1] = (-100, -80, w * 16 + 100, h * 16 + 90)
+    rois[:, 2] = (37, 21, 45, 25)
+    rois[:, 3] = (80, 48, 80, 48)
+    return rois.astype(np.float32)
+
+
+ALIGN_SHAPES = [(1, 5, 7, 9, 3, 7), (2, 37, 21, 30, 40, 7), (2, 29, 38, 64, 512, 7),
+                (2, 23, 50, 84, 1024, 14), (1, 9, 84, 50, 24, 14)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,r,h,w,c,p", ALIGN_SHAPES)
+def test_roi_align_kernel_bit_equal(dev, dtype, b, r, h, w, c, p):
+    """K5: bit-equal to the plain version (the same float32 operations in
+    the same order, none contracted), at P=7 and P=14, the VGG and R101
+    widths, the COCO map and its transpose, ragged channel counts (3, 40,
+    24) and an unaligned base; edge-clipped and sub-cell RoIs."""
+    rng = np.random.default_rng(r + c)
+    feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=dev)
+    rois = torch.tensor(_align_rois(rng, b, r, h, w), device=dev)
+    want = roi_align.roi_align_plain(feat, rois, p)
+    for f in (feat, _unaligned(feat)):
+        before = _build.launch_counts["roi_align"]
+        k = roi_align.roi_align_cuda(f, rois, p)
+        assert _build.launch_counts["roi_align"] == before + 1
+        assert k.dtype == torch.float32 and torch.equal(_bits(k), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,r,h,w,c,p", ALIGN_SHAPES)
+def test_roi_align_backward_kernel(dev, dtype, b, r, h, w, c, p):
+    """K6 within rounding of the plain version: float32 within 1e-5 of the
+    largest |dfeat|, bf16 within one bf16 ulp of it (float32 atomics add in
+    a run-dependent order, and K6 merges a bin's samples per cell before it
+    adds); autograd through roi_align reaches K5 and K6, and the RoIs get
+    no gradient."""
+    rng = np.random.default_rng(r + c + 1)
+    feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=dev)
+    rois = torch.tensor(_align_rois(rng, b, r, h, w), device=dev)
+    g = torch.tensor(rng.standard_normal((b, r, p, p, c)), dtype=torch.float32, device=dev)
+    want = roi_align.roi_align_backward_plain(feat.shape, dtype, rois, g, p).float()
+    for gi in (g, _unaligned(g)):
+        before = _build.launch_counts["roi_align_bwd"]
+        k = roi_align.roi_align_backward_cuda(feat.shape, dtype, rois, gi, p)
+        assert _build.launch_counts["roi_align_bwd"] == before + 1
+        assert k.dtype == dtype
+        scale = float(want.abs().max())
+        limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+        assert float((k.float() - want).abs().max()) <= limit
+    x = feat.clone().requires_grad_()
+    r_t = rois.clone().requires_grad_()
+    before = dict(_build.launch_counts)
+    out = roi_align.roi_align(x, r_t, p)
+    out.backward(g)
+    assert _build.launch_counts["roi_align"] == before["roi_align"] + 1
+    assert _build.launch_counts["roi_align_bwd"] == before["roi_align_bwd"] + 1
+    assert r_t.grad is None and x.grad.dtype == dtype
+    assert float((x.grad.float() - want).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("m,k,n", [(2 * 38 * 64, 576, 128), (300, 25088, 64), (5, 37, 21),
+                                   (17, 8, 8)])
+def test_int8_product_on_the_card_equals_the_cpu(dev, m, k, n):
+    """The int8 products (cuBLASLt's int8 GEMM) are exact in int32: equal to
+    the CPU's, padded where cuBLASLt takes M > 16 and K, N multiples of 8;
+    qdense and qconv2d equal to the CPU's bit for bit."""
+    rng = np.random.default_rng(m + k)
+    a = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8)
+    b = torch.tensor(rng.integers(-127, 128, (n, k)), dtype=torch.int8)
+    assert torch.equal(quant.int8_matmul(a.to(dev), b.to(dev)).cpu(), quant.int8_matmul(a, b))
+    x = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+    lin = torch.nn.Linear(k, n)
+    lin_d = torch.nn.Linear(k, n, device=dev)
+    lin_d.load_state_dict(lin.state_dict())
+    with torch.no_grad():
+        assert torch.equal(quant.qdense(x.to(dev), lin_d).cpu(), quant.qdense(x, lin))
+    conv = torch.nn.Conv2d(13, 24, 3, padding=1)
+    conv_d = torch.nn.Conv2d(13, 24, 3, padding=1, device=dev)
+    conv_d.load_state_dict(conv.state_dict())
+    xc = torch.tensor(rng.standard_normal((2, 9, 11, 13)), dtype=torch.float32)
+    with torch.no_grad():
+        assert torch.equal(quant.qconv2d(xc.to(dev), conv_d).cpu(), quant.qconv2d(xc, conv))

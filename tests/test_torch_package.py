@@ -20,7 +20,7 @@ from trcnn_torch.cli import add_common_flags, evaluate, forward, train
 from trcnn_torch.entry import entry, train_entry
 from trcnn_torch.eval import Evaluator
 from trcnn_torch.models import make_model
-from trcnn_torch.ops import nms, roi_pool, stem
+from trcnn_torch.ops import nms, quant, roi_align, roi_pool, stem
 from trcnn_torch.train import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 46, names\n"
         "for n in ('cli.forward', 'cli.evaluate', 'cli.train', 'data.loader', 'eval.evaluator',\n"
         "          'convert_chainer', 'convert_caffemodel', 'weights', 'data.coco',\n"
-        "          'eval.coco_ap'):\n"
+        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant'):\n"
         "    assert 'trcnn_torch.' + n in names, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'trcnn', 'cv2', 'PIL')]\n"
@@ -118,6 +118,12 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     with pytest.raises(ValueError):
         stem.stem_block1(torch.empty((1, 4, 4, 3), device="meta"), *(
             torch.empty(s, device="meta") for s in ((64, 3, 3, 3), (64,), (64, 64, 3, 3), (64,))))
+    with pytest.raises(ValueError):
+        roi_align.roi_align(torch.empty((1, 4, 4, 8), device="meta"),
+                            torch.empty((1, 2, 4), device="meta"))
+    with pytest.raises(ValueError):
+        quant.int8_matmul(torch.empty((32, 16), dtype=torch.int8, device="meta"),
+                          torch.empty((8, 16), dtype=torch.int8, device="meta"))
     # the kernel wrappers refuse CPU tensors outright
     with pytest.raises(ValueError):
         nms.greedy_keep_cuda(torch.zeros((8, 4)), torch.ones(8, dtype=torch.bool), 0.7, 4)
@@ -129,6 +135,11 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     with pytest.raises(ValueError):
         stem.stem_block1_cuda(torch.zeros((1, 4, 4, 3)), *(
             torch.zeros(s) for s in ((64, 3, 3, 3), (64,), (64, 64, 3, 3), (64,))))
+    with pytest.raises(ValueError):
+        roi_align.roi_align_cuda(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 2, 4)))
+    with pytest.raises(ValueError):
+        roi_align.roi_align_backward_cuda((1, 4, 4, 8), torch.float32, torch.zeros((1, 2, 4)),
+                                          torch.zeros((1, 2, 7, 7, 8)))
 
 
 def test_build_key_covers_every_source(tmp_path, monkeypatch):

@@ -26,7 +26,7 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem")
+KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem", "roi_align", "roi_align_bwd")
 # launch counters: one per kernel, K4's large-map variant apart (it lives in
 # libroi_pool_bwd.so)
 COUNTERS = KERNELS + ("roi_pool_bwd_large",)

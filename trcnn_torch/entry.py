@@ -8,7 +8,10 @@
 canvas are made from seed 0.  ``fn(model, images, im_info)`` runs detect +
 postprocess.  ``backbone`` picks VGG-16 (the default) or "resnet101"
 (``voc_config().replace(backbone=...)``), as the JAX scripts' ``--backbone``
-switch does.
+switch does.  ``quant="int8"`` builds the dynamic int8 model
+(``make_model(..., quant="int8")``) and, as ``bench.py`` does, leaves its
+weights float32: they are quantized from the float32 parameters.  A
+config whose ``roi.mode`` is "align" pools with RoIAlign.
 
 ``train_entry(device)`` builds the same model for training (float32 master
 parameters, compute in ``dtype``) with its Caffe-order optimizer, and a
@@ -48,12 +51,14 @@ def _setup(device, cfg: Optional[FasterRCNNConfig], backbone: Optional[str]):
 
 
 def entry(device="cuda", cfg: Optional[FasterRCNNConfig] = None,
-          dtype: torch.dtype = torch.bfloat16, backbone: Optional[str] = None
-          ) -> Tuple[Callable[..., Detections], tuple]:
+          dtype: torch.dtype = torch.bfloat16, backbone: Optional[str] = None,
+          quant: str = "none") -> Tuple[Callable[..., Detections], tuple]:
     device, cfg, im_info_row = _setup(device, cfg, backbone)
     gen = torch.Generator(device=device).manual_seed(0)
-    model = make_model(cfg, dtype=dtype, device=device).init(gen)
-    cast_params_for_inference(model, dtype).eval()
+    model = make_model(cfg, dtype=dtype, device=device, quant=quant).init(gen)
+    if quant == "none":
+        cast_params_for_inference(model, dtype)
+    model.eval()
     images = torch.randint(0, 256, (1, cfg.image.pad_h, cfg.image.pad_w, 3),
                            dtype=torch.uint8, generator=gen, device=device)
     im_info = torch.tensor([im_info_row], dtype=torch.float32, device=device)

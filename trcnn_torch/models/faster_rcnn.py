@@ -11,7 +11,11 @@ detached RPN outputs, proposal targets and the head losses.
 ``cfg.backbone`` picks the trunk and the RoI head, as
 ``trcnn/models/faster_rcnn.py:88-104`` does: "vgg16" (VGG-16 trunk, 7x7
 RoI pool, fc6/fc7 head) or "resnet101" (ResNet-101-C4 trunk, 14x14 RoI
-pool, res5 head).  Both pool with max pooling; RoIAlign is not ported.
+pool, res5 head).  ``cfg.roi.mode`` picks the pooling: "max" (Caffe's RoI
+max pool) or "align" (RoIAlign, 2 x 2 samples per bin, float32 output),
+at the same pool size.  ``quant="int8"`` runs VGG-16's convolutions from
+conv2_1 and fc6/fc7 as dynamic int8 products (``ops/quant.py``), for
+inference only.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from trcnn_torch.ops.anchors import shifted_anchors
 from trcnn_torch.ops.boxes import bbox_transform_inv, clip_boxes, device_constant
 from trcnn_torch.ops.nms import multiclass_nms
 from trcnn_torch.ops.proposal import proposal_layer
+from trcnn_torch.ops.roi_align import roi_align
 from trcnn_torch.ops.roi_pool import roi_max_pool
 from trcnn_torch.targets import anchor_targets, proposal_targets
 
@@ -57,20 +62,26 @@ class Detections(NamedTuple):
 class FasterRCNN(nn.Module):
     """Trunk + RPN + RoI head.  ``dtype`` is the compute dtype; the
     parameters, the RPN outputs and the cls_score/bbox_pred layers stay
-    float32."""
+    float32.  ``quant``: "none", or "int8" (VGG-16 only, inference only;
+    the parameters are the float model's)."""
 
     def __init__(self, cfg: FasterRCNNConfig = FasterRCNNConfig(),
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda", quant: str = "none"):
         super().__init__()
-        if cfg.roi.mode != "max":
-            raise NotImplementedError(f"RoI mode {cfg.roi.mode!r} is not ported yet")
+        if cfg.roi.mode not in ("max", "align"):
+            raise ValueError(f"unknown RoI mode {cfg.roi.mode!r}")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant mode {quant!r}")
+        if quant != "none" and cfg.backbone != "vgg16":
+            raise ValueError("quant='int8' currently supports the vgg16 backbone only")
         self.cfg = cfg
         self.dtype = dtype
+        self.quant = quant
         p = cfg.roi.output_size
         if cfg.backbone == "vgg16":
-            extractor, feat_channels, self.pool_size = VGG16(dtype, device), 512, p
+            extractor, feat_channels, self.pool_size = VGG16(dtype, device, quant), 512, p
             head = VGG16RoIHead(p * p * 512, cfg.num_classes, cfg.head_hidden, dtype, device,
-                                dropout_rate=cfg.head_dropout)
+                                dropout_rate=cfg.head_dropout, quant=quant)
         elif cfg.backbone == "resnet101":
             extractor, feat_channels, self.pool_size = ResNet101C4(dtype, device), 1024, 2 * p
             head = ResNetC5Head(cfg.num_classes, dtype, device)
@@ -130,13 +141,15 @@ class FasterRCNN(nn.Module):
     def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor,
                     generator: Optional[torch.Generator] = None):
         """feat (B, fH, fW, C), rois (B, R, 4) -> (cls_score (B, R, K),
-        bbox_pred (B, R, 4K)); all images' crops, pooled at ``pool_size``,
-        go through the head as one (B*R) batch, in the layout the pool
-        writes.  ``generator`` draws the VGG head's dropout masks
-        (training); None runs the deterministic head."""
+        bbox_pred (B, R, 4K)); all images' crops, pooled at ``pool_size``
+        (RoI max pool, or RoIAlign with 2 x 2 samples per bin as
+        ``trcnn/models/faster_rcnn.py:145-149`` calls it), go through the
+        head as one (B*R) batch, in the layout the pool writes.
+        ``generator`` draws the VGG head's dropout masks (training); None
+        runs the deterministic head."""
         b, r = rois.shape[:2]
-        pooled = roi_max_pool(feat, rois.contiguous(), self.pool_size,
-                              self.cfg.roi.spatial_scale)
+        pool = roi_align if self.cfg.roi.mode == "align" else roi_max_pool
+        pooled = pool(feat, rois.contiguous(), self.pool_size, self.cfg.roi.spatial_scale)
         cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]),
                                          generator)
         return cls_score.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
@@ -193,6 +206,9 @@ class FasterRCNN(nn.Module):
         rpn_bbox_loss, cls_loss, bbox_loss (float32 scalars with autograd)
         and num_fg_anchors, num_fg_rois (per-image means).
         """
+        if self.quant != "none":
+            raise ValueError("quantized models are inference-only: round passes no "
+                             "gradient (train fp32, deploy int8)")
         cfg = self.cfg
         b = images.shape[0]
         feat = self.extractor(self._prepare(images, im_info))
@@ -270,10 +286,12 @@ def postprocess(raw: RawDetections, im_info: torch.Tensor, cfg: FasterRCNNConfig
 
 
 def make_model(cfg: FasterRCNNConfig = FasterRCNNConfig(),
-               dtype: torch.dtype = torch.float32, device="cuda") -> FasterRCNN:
+               dtype: torch.dtype = torch.float32, device="cuda",
+               quant: str = "none") -> FasterRCNN:
     """The model with float32 parameters on ``device``: the card unless the
-    caller asks for the CPU.  Without a card, the default raises."""
-    return FasterRCNN(cfg, dtype, device)
+    caller asks for the CPU.  Without a card, the default raises.
+    ``quant="int8"``: dynamic int8 inference (VGG-16 only)."""
+    return FasterRCNN(cfg, dtype, device, quant)
 
 
 _F32_ISLANDS = ("cls_score", "bbox_pred")

@@ -16,6 +16,12 @@ Parameters stay float32 unless ``cast_params_for_inference`` narrowed the
 weights; every layer casts its weight and bias to the compute dtype at use,
 and adds the bias after rounding the convolution to that dtype, as flax's
 ``nn.Conv`` does.
+
+``quant="int8"`` (inference only) runs conv2_1 ... conv5_3 as dynamic int8
+products (``ops/quant.qconv2d``: float32 output with the bias added, then
+cast to the compute dtype, then ReLU), as ``trcnn/models/vgg16.py:129-150``
+does; block 1 stays full precision through the stem.  The parameters are
+the float model's.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from trcnn_torch.ops.quant import qconv2d
 from trcnn_torch.ops.stem import stem_block1
 
 # (block, convs in block, channels)
@@ -50,15 +57,23 @@ def conv_nchw(x: torch.Tensor, conv: nn.Conv2d, relu: bool = True) -> torch.Tens
 
 
 class VGG16(nn.Module):
-    def __init__(self, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, dtype: torch.dtype = torch.float32, device=None, quant: str = "none"):
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
         in_ch = 3
         for name, n_convs, ch in VGG_CFG:
             for ci in range(n_convs):
                 self.add_module(f"{name}_{ci + 1}",
                                 nn.Conv2d(in_ch, ch, 3, padding=1, device=device))
                 in_ch = ch
+
+    def _conv(self, x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+        """conv2_1 ... conv5_3 + ReLU on a channels-last NCHW view."""
+        if self.quant == "int8":
+            y = qconv2d(x.permute(0, 2, 3, 1), conv).to(self.dtype)
+            return torch.relu(y).permute(0, 3, 1, 2)
+        return conv_nchw(x, conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC, H and W multiples of 16 -> (B, H/16, W/16, 512)."""
@@ -67,9 +82,9 @@ class VGG16(nn.Module):
             x = stem_block1(x.to(self.dtype).contiguous(), c11.weight, c11.bias,
                             c12.weight, c12.bias)
             x = x.permute(0, 3, 1, 2)             # channels-last NCHW view
-            x = conv_nchw(conv_nchw(x, self.conv2_1), self.conv2_2)
+            x = self._conv(self._conv(x, self.conv2_1), self.conv2_2)
         for name, n_convs, _ in VGG_CFG[2:]:
             x = F.max_pool2d(x, 2, 2)
             for ci in range(n_convs):
-                x = conv_nchw(x, getattr(self, f"{name}_{ci + 1}"))
+                x = self._conv(x, getattr(self, f"{name}_{ci + 1}"))
         return x.permute(0, 2, 3, 1).contiguous()

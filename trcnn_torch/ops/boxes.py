@@ -27,6 +27,12 @@ def device_constant(values: Tuple[float, ...], device: torch.device) -> torch.Te
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
+def ieee_div(a: torch.Tensor, v: float) -> torch.Tensor:
+    """a / v as the IEEE quotient on every device: PyTorch's CUDA division
+    by a host scalar multiplies by the scalar's reciprocal instead."""
+    return a / a.new_full((), v)
+
+
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
     w = boxes[..., 2] - boxes[..., 0] + 1.0
     h = boxes[..., 3] - boxes[..., 1] + 1.0
