@@ -5,7 +5,8 @@
 
 Phases, one line each, any failure raises and exits non-zero:
 
-1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+1. the card (``nvidia-smi`` name, power limit and compute mode), torch and
+   CUDA versions;
 2. build the CUDA kernels K1-K6 from ``trcnn_torch/csrc``, all at once;
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (K1 batched over 8 images, an empty and a short image
@@ -78,6 +79,20 @@ Phases, one line each, any failure raises and exits non-zero:
     detect on VOC (a request and b=8) and COCO (b=8), counted, beside the
     bf16 model of the same weights in turns, profiled, and each quantized
     layer's int8 GEMM and whole int8 layer against its bf16 layer.
+11. data parallelism (``trcnn_torch.parallel``): NCCL refuses two ranks on
+    one device, so two gloo ranks share the card (this script re-runs
+    itself as ``chip_smoke.py --dp-rank SPEC RANK``, its output kept in
+    ``build/chip_smoke/dp.txt``): the small VGG-16 training config (2
+    steps), VGG-16 VOC (3 steps) and ResNet-101 COCO (2 steps) float32
+    training at a global batch of 8, each data-parallel step against one
+    process's step from the same state on the same global batch (the
+    replicas bit-identical, the sampled sets equal, losses and grad_norm
+    within ``DP_RTOL``), with the all-reduce's time and bytes; the
+    evaluator sharded over the two ranks on 37 images of both canvas
+    buckets against one process (each image once, its detections equal);
+    each rank a counted path.  Then NCCL at world size 1: the train CLI
+    with ``--distributed`` against the same run without it, and the step
+    with and without the group in turns.
 
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
@@ -137,7 +152,13 @@ REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "resnet101 coco align detect": ("nms", "roi_align"),
             "resnet101 coco align train": ("nms", "roi_align", "roi_align_bwd"),
             "vgg16 int8 detect": ("nms", "roi_pool", "stem"),
-            "vgg16 coco int8 detect": ("nms", "roi_pool", "stem")}
+            "vgg16 coco int8 detect": ("nms", "roi_pool", "stem"),
+            # data parallel: each rank's launches
+            "vgg16 dp train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            "resnet101 coco dp train": ("nms", "roi_pool", "roi_pool_bwd"),
+            "vgg16 dp evaluate": ("nms", "roi_pool", "stem"),
+            "vgg16 train CLI nccl": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            "vgg16 train CLI without group": ("nms", "roi_pool", "roi_pool_bwd", "stem")}
 BACKBONES = ("vgg16", "resnet101")
 NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
@@ -499,6 +520,9 @@ def phase_card():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     phase(smi)
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    phase(f"compute mode: {mode}")
     phase(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
@@ -2154,7 +2178,7 @@ def phase_coco_train(dev, backbone: str, rec, mode: str = "max"):
     from trcnn_torch.entry import train_entry
     from trcnn_torch.train.optim import is_frozen
     from trcnn_torch.train.step import STAGES
-    from trcnn_torch.train.trainer import to_device
+    from trcnn_torch.train.step import device_batch
 
     cfg = coco_cfg(backbone, mode)
     t0 = time.perf_counter()
@@ -2162,7 +2186,7 @@ def phase_coco_train(dev, backbone: str, rec, mode: str = "max"):
     loader = DetectionLoader(SyntheticDetection(n=40, num_classes=cfg.num_classes, seed=5),
                              batch_size=8, image_cfg=cfg.image, augment=True, shuffle=True,
                              seed=1, uint8_images=True)
-    batches = [to_device(b, dev) for b in loader]
+    batches = [device_batch(b, dev) for b in loader]
     model = state.model
     torch.cuda.synchronize()
     canvases = sorted({tuple(b["images"].shape[1:3]) for b in batches})
@@ -2655,9 +2679,704 @@ def phase_int8(dev, by_path):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- data parallel
+#
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device); each is this script, started as ``chip_smoke.py --dp-rank SPEC
+# RANK``.  NCCL runs at world size 1, through the train CLI's --distributed.
+
+DP_WORLD = 2
+# Each data-parallel step against one process's step on the same global
+# batch from the same state, float32 (the train CLI's default; TF32 off):
+# on the card two runs of one process part after their first step
+# (cuDNN's and the index ops' backward add with atomics: two runs of the
+# train CLI on an H100, grad_norm 3.7e-3 apart at the second step), so
+# rank 0 takes the reference step before each data-parallel one and
+# restores the state.
+# Losses and grad_norm relative: 1e-5 (the ranks' shares are summed in
+# another order than one process sums the batch) where the trunk gives the
+# same bits at 4 images as at 8; where it does not (the convolutions may
+# take other algorithms: ResNet-101 COCO's second step on an H100), the
+# reference samples from the proposals the ranks' halves give (which the
+# last bits can move), and its features still differ in their last bits:
+# 1e-3.  grad_norm where the bits are equal: 1e-4, not 1e-5 (the
+# backward's atomics order the gradients' sums differently on every run:
+# 2.1e-5 at VGG-16 VOC's third step on an H100).
+DP_RTOL = (1e-5, 1e-3)
+DP_NORM_RTOL = 1e-4
+DP_TIMEOUT_S = 600
+
+
+def config_from_dict(d: dict, cls=None):
+    """The port's config from ``dataclasses.asdict`` of one (a rank gets
+    its config in its spec)."""
+    import dataclasses
+    import typing
+
+    from trcnn_torch.config import FasterRCNNConfig
+
+    cls = cls or FasterRCNNConfig
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v, t = d[f.name], hints[f.name]
+        if dataclasses.is_dataclass(t):
+            v = config_from_dict(v, t)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def rows(tree, rank: int, world: int):
+    """Rank ``rank``'s block of rows (of ``world`` equal blocks) of every
+    tensor in ``tree`` (a tensor, dict, list or tuple)."""
+    import torch
+
+    if torch.is_tensor(tree):
+        b = tree.shape[0] // world
+        return tree[rank * b:(rank + 1) * b].contiguous()
+    if isinstance(tree, dict):
+        return {k: rows(v, rank, world) for k, v in tree.items()}
+    return type(tree)(rows(v, rank, world) for v in tree)
+
+
+def digest(model, momentum=None) -> str:
+    """sha256 over every parameter's bytes (and, given the optimizer's
+    momentum buffers, theirs): equal digests, bit-identical replicas."""
+    import hashlib
+
+    import torch
+
+    def raw(t):
+        return t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(raw(p))
+        if momentum is not None:
+            h.update(raw(momentum[name]))
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def sampled_sets(records: list):
+    """Record what ``FasterRCNN.losses`` samples, one dict per call: the
+    anchor labels (B, N) and the sampled RoIs, labels and valid slots."""
+    from trcnn_torch.models import faster_rcnn
+
+    real_at, real_pt = faster_rcnn.anchor_targets, faster_rcnn.proposal_targets
+
+    def at(*args, **kw):
+        out = real_at(*args, **kw)
+        records.append({"at_labels": out.labels.cpu()})
+        return out
+
+    def pt(*args, **kw):
+        out = real_pt(*args, **kw)
+        records[-1].update(pt_rois=out.rois.cpu(), pt_labels=out.labels.cpu(),
+                           pt_valid=out.valid.cpu())
+        return out
+
+    faster_rcnn.anchor_targets, faster_rcnn.proposal_targets = at, pt
+    try:
+        yield records
+    finally:
+        faster_rcnn.anchor_targets, faster_rcnn.proposal_targets = real_at, real_pt
+
+
+def run_steps(state, batches, uniforms=None, proposals=None):
+    """``train_step`` over ``batches`` (this process's rows, on the model's
+    device); per step the metrics, the sampled sets, the replica's digest
+    and the host-clock ms (synchronised on the card)."""
+    import torch
+
+    from trcnn_torch.train.step import train_step
+
+    out = []
+    cuda = next(state.model.parameters()).is_cuda
+    for i, batch in enumerate(batches):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sampled_sets([]) as rec:
+            m = train_step(state, batch, uniforms=uniforms[i] if uniforms else None,
+                           proposals=proposals[i] if proposals else None)
+            metrics = {k: float(v) for k, v in m.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append({"metrics": metrics, "sampled": rec[0], "ms": ms,
+                    "digest": digest(state.model, state.optimizer.momentum)})
+    return out
+
+
+def compare_steps(ref, ranks, what, rtol):
+    """World ``len(ranks)`` against one process on the same global batches
+    (``ref``, a step each, from :func:`reference_step`): the replicas'
+    digests equal after every step; the anchor samples, the sampled RoIs
+    (labels, valid slots, boxes within 1e-2 pixel) and the sample counts
+    equal; losses and grad_norm within ``rtol`` (its first entry where the
+    trunk gave the same bits at both batch sizes, its second elsewhere),
+    grad_norm within DP_NORM_RTOL at least."""
+    import torch
+
+    for i, want in enumerate(ref):
+        steps = [r[i] for r in ranks]
+        if len({s["digest"] for s in steps}) != 1:
+            raise AssertionError(f"{what}: the replicas differ after step {i + 1}")
+        got = {k: torch.cat([s["sampled"][k] for s in steps]) for k in want["sampled"]}
+        s = want["sampled"]
+        if not torch.equal(got["at_labels"], s["at_labels"]):
+            raise AssertionError(f"{what}: step {i + 1} sampled other anchors")
+        bad = ((got["pt_labels"] != s["pt_labels"]) | (got["pt_valid"] != s["pt_valid"])
+               | ((got["pt_rois"] - s["pt_rois"]).abs() > 1e-2).any(-1))
+        if bad.any():
+            raise AssertionError(f"{what}: step {i + 1} sampled {int(bad.sum())} other RoIs")
+        tol = rtol[not want["same_trunk"]]
+        for k, v in want["metrics"].items():
+            mine = {s["metrics"][k] for s in steps}
+            if len(mine) != 1:
+                raise AssertionError(f"{what}: the ranks report different {k}: {mine}")
+            (x,) = mine
+            k_tol = 0 if k.startswith("num_fg") else max(tol, DP_NORM_RTOL * (k == "grad_norm"))
+            if abs(x - v) > k_tol * abs(v):
+                raise AssertionError(f"{what}: step {i + 1} {k} {x} vs one process's {v}")
+
+
+def launch_ranks(spec: dict, tmp: str):
+    """Start DP_WORLD ranks (this script with ``--dp-rank``), wait for them
+    (at most ``DP_TIMEOUT_S``, every rank killed if one fails or the time
+    runs out) and return each rank's results."""
+    import dataclasses
+    import os
+
+    import torch
+
+    world = DP_WORLD
+    spec = dict(spec, store=f"file://{tmp}/store_{spec['name']}", world=world, out=tmp,
+                cfg=dataclasses.asdict(spec["cfg"]))
+    path = os.path.join(tmp, f"spec_{spec['name']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    logs = [os.path.join(tmp, f"{spec['name']}.{r}.log") for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen([sys.executable, __file__, "--dp-rank", path, str(r)],
+                                              stdout=log, stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    for r, p in enumerate(procs):
+        text = open(logs[r]).read()
+        log_file("dp.txt", f"$ rank {r} of {spec['name']} (exit {p.returncode})\n{text}")
+        if p.returncode != 0:
+            raise AssertionError(f"data-parallel rank {r} of {spec['name']} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+    return [torch.load(os.path.join(tmp, f"{spec['name']}.{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def dp_config(preset: str, backbone: str):
+    """The config of a data-parallel phase: "small" (the small training
+    config with the head's dropout on), "voc" or "coco"."""
+    from trcnn_torch.config import voc_config
+
+    if preset == "small":
+        return train_cfg(backbone).replace(head_dropout=0.5)
+    if preset == "coco":
+        return coco_cfg(backbone)
+    return voc_config().replace(backbone=backbone)
+
+
+def dp_model(cfg, dev, dtype, state=None):
+    """The seeded model of the full-width phases (``train_entry``'s init),
+    or one with the parameters of ``state``."""
+    import torch
+
+    from trcnn_torch.models import make_model
+
+    model = make_model(cfg, dtype=dtype, device=dev)
+    if state is not None:
+        model.load_state_dict(state)
+        return model
+    return model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def reference_step(state, batch, world: int):
+    """One process's step from ``state`` on the whole ``batch`` (as
+    :func:`run_steps` reports it, and whether the trunk gives the batch's
+    ``world`` blocks, one rank's images each, the bits it gives the
+    batch), ``state`` restored after.  Where it does not, the step samples
+    from the proposals the blocks give: those the ranks sample from."""
+    import torch
+
+    model = state.model
+    same = trunk_equal(model, batch["images"], batch["im_info"], world)
+    proposals = None
+    if not same:
+        with torch.no_grad():
+            parts = [model.propose(model.rpn(model.extractor(model._prepare(
+                b["images"], b["im_info"]))), b["im_info"], train=True)
+                for b in (rows(batch, r, world) for r in range(world))]
+        proposals = [tuple(torch.cat(t) for t in zip(*parts))]
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    momentum = {k: v.clone() for k, v in state.optimizer.momentum.items()}
+    step, group = state.step, state.group
+    state.group = None
+    (ref,) = run_steps(state, [batch], proposals=proposals)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(params[k])
+            state.optimizer.momentum[k].copy_(momentum[k])
+    state.step, state.group = step, group
+    ref["same_trunk"] = same
+    return ref
+
+
+def dp_train_job(job, dev, rank, world, group):
+    """A rank's train steps on its rows of the global batches.  Before
+    each, rank 0 takes one process's step from the same state on the whole
+    global batch (:func:`reference_step`).  The other ranks start from
+    other weights, which the state's broadcast overwrites.  Returns the
+    steps, the references, the launches of the data-parallel steps alone,
+    peak memory and one timed all-reduce of the gradients."""
+    import torch
+
+    from trcnn_torch import _build, parallel
+    from trcnn_torch.train.step import TrainState
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dtype = getattr(torch, job["dtype"])
+    state0 = torch.load(job["state"]) if job.get("state") else None
+    model = dp_model(config_from_dict(job["cfg"]), dev, dtype, state0)
+    if rank:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+    state = TrainState.create(model, group)
+    digest0 = digest(model)
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in torch.load(job["batches"])]
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    refs, steps = [], []
+    launches = dict.fromkeys(_build.launch_counts, 0)
+    for batch in batches:
+        if rank == 0:
+            refs.append(reference_step(state, batch, world))
+        sync()
+        before = dict(_build.launch_counts)
+        steps += run_steps(state, [rows(batch, rank, world)])
+        sync()
+        for k in launches:
+            launches[k] += _build.launch_counts[k] - before[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
+    times = []
+    for _ in range(3):
+        parallel.barrier(group)
+        sync()
+        t0 = time.perf_counter()
+        parallel.all_reduce_sum_(grads, group)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"steps": steps, "refs": refs, "digest0": digest0, "launches": launches,
+            "peak_gib": peak, "allreduce_ms": statistics.median(times),
+            "allreduce_bytes": sum(g.numel() * g.element_size() for g in grads)}
+
+
+def dp_eval_job(job, dev, rank, world, group):
+    """A rank's share of the sharded evaluation; its detections (every
+    rank's, merged), metrics, timing and launches."""
+    import torch
+
+    from trcnn_torch import _build
+    from trcnn_torch.data import SyntheticDetection
+    from trcnn_torch.eval import Evaluator
+
+    cfg = config_from_dict(job["cfg"])
+    model = eval_model(cfg, dev)
+    ev = Evaluator(model, cfg, SyntheticDetection(**job["dataset"]), batch_size=job["batch_size"],
+                   device=dev, group=group)
+    _build.reset_launch_counts()
+    metrics = ev()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"metrics": metrics, "detections": ev.detections, "timing": ev.timing,
+            "local_images": ev.last_local_images, "launches": dict(_build.launch_counts),
+            "digest": digest(model)}
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank: join the gloo group (on card 0, or on the CPU for a
+    rehearsal), run the spec's job, save its result for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from trcnn_torch import parallel
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = spec["device"] == "cuda"
+    dev = parallel.initialize(spec["store"], spec["world"], rank,
+                              local_device_ids=[0] if cuda else None, backend="gloo")
+    try:
+        job = {"train": dp_train_job, "eval": dp_eval_job}[spec["kind"]]
+        res = job(spec, dev, rank, spec["world"], dist.group.WORLD)
+        torch.save(res, f"{spec['out']}/{spec['name']}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_global_batches(cfg, coco: bool, n: int):
+    """``n`` global batches of 8 on the host: the loader's multi-scale COCO
+    batches, or VOC canvases of seeded uint8 noise with ``train_entry``'s
+    gt."""
+    import torch
+
+    from trcnn_torch.entry import TRAIN_GT_BOXES, TRAIN_GT_LABELS
+    from trcnn_torch.train.step import device_batch
+
+    if coco:
+        from trcnn_torch.data import DetectionLoader, SyntheticDetection
+
+        loader = DetectionLoader(SyntheticDetection(n=8 * n, num_classes=cfg.num_classes, seed=5),
+                                 batch_size=8, image_cfg=cfg.image, augment=True, shuffle=True,
+                                 seed=1, uint8_images=True)
+        return [device_batch(b, torch.device("cpu")) for b in loader][:n]
+    g = len(TRAIN_GT_LABELS)
+    out = []
+    for i in range(n):
+        gen = torch.Generator().manual_seed(100 + i)
+        out.append({
+            "images": torch.randint(0, 256, (8, cfg.image.pad_h, cfg.image.pad_w, 3),
+                                    dtype=torch.uint8, generator=gen),
+            "im_info": torch.tensor([[600.0, 1000.0, 1.6]]).expand(8, 3).contiguous(),
+            "gt_boxes": torch.tensor(TRAIN_GT_BOXES).expand(8, g, 4).contiguous(),
+            "gt_labels": torch.tensor(TRAIN_GT_LABELS, dtype=torch.int32).expand(8, g)
+            .contiguous(),
+            "gt_valid": torch.ones((8, g), dtype=torch.bool)})
+    return out
+
+
+def trunk_equal(model, images, info, world: int) -> bool:
+    """The trunk's bits for the batch equal those for its ``world`` blocks
+    (one rank's images each): then both worlds sample from the same
+    proposals."""
+    import torch
+
+    with torch.no_grad():
+        whole = model.extractor(model._prepare(images, info))
+        parts = torch.cat([model.extractor(model._prepare(rows(images, r, world),
+                                                          rows(info, r, world)))
+                           for r in range(world)])
+    return torch.equal(whole, parts)
+
+
+def phase_dp_train(dev, by_path, tmp, preset: str, backbone: str, n_steps: int):
+    """Data-parallel training at full width: two gloo ranks on the card, 4
+    images each, ``n_steps`` steps on global batches of 8 from seeded
+    weights (float32, the train CLI's default; VOC canvases, or the
+    loader's multi-scale COCO batches), each step against one process's
+    step from the same state on the same global batch (rank 0's
+    :func:`reference_step`).  The replicas bit-identical from the start
+    (rank 1's own init overwritten by the broadcast) and after every step;
+    the sampled sets equal; losses and grad_norm within DP_RTOL and
+    DP_NORM_RTOL; each rank's data-parallel steps launch exactly the path's kernels.  Prints
+    the step times, the all-reduce's time and bytes, and peak memory."""
+    import os
+
+    import torch
+
+    cfg = dp_config(preset, backbone)
+    job = {"name": f"{backbone}_{preset}_train", "kind": "train", "cfg": cfg,
+           "dtype": "float32", "device": dev.type}
+    job["batches"] = os.path.join(tmp, f"{job['name']}_batches.pt")
+    torch.save(dp_global_batches(cfg, preset == "coco", n_steps), job["batches"])
+    ranks = launch_ranks(job, tmp)
+    ref = ranks[0]["refs"]
+    what = (f"data parallel {NAMES[backbone]} {preset.upper()} train, float32, {DP_WORLD} "
+            f"gloo ranks x 4 images")
+    if len({r["digest0"] for r in ranks}) != 1:
+        raise AssertionError(f"{what}: the replicas start from other weights")
+    compare_steps(ref, [r["steps"] for r in ranks], what, DP_RTOL)
+    same = [i + 1 for i, r in enumerate(ref) if r["same_trunk"]]
+    path = path_name(backbone, "dp train", coco=preset == "coco")
+    for r, res in enumerate(ranks):
+        require_launches(path, res["launches"])
+        by_path[f"{path} rank {r}"] = res["launches"]
+    n_rois = ref[0]["sampled"]["pt_labels"].numel()
+    phase(f"{what}, {n_steps} steps, each vs one process x 8 from the same state: replicas "
+          f"bit-identical from the broadcast on; anchors and the {n_rois} sampled RoIs equal; "
+          f"the trunk's bits at 4 images equal those at 8 at steps {same} of {n_steps} (where "
+          f"not, the one process sampled from the ranks' proposals); losses within "
+          f"{DP_RTOL[0]:g} there (grad_norm {DP_NORM_RTOL:g}), {DP_RTOL[1]:g} elsewhere")
+    for i, want in enumerate(ref):
+        got = ranks[0]["steps"][i]["metrics"]
+        phase(f"  step {i + 1}, rank 0 (one process): " + ", ".join(
+            f"{k} {got[k]:.6g} ({v:.6g})" for k, v in want["metrics"].items()))
+    phase(f"  step ms (host clock; the ranks time-share the card, rank 1 waits while rank 0 "
+          f"takes the one-process step): one process {[round(s['ms'], 2) for s in ref]}; "
+          + "; ".join(f"rank {r} {[round(s['ms'], 2) for s in res['steps']]}"
+                      for r, res in enumerate(ranks)))
+    phase(f"  gradient all-reduce over gloo: {ranks[0]['allreduce_bytes'] / 2**20:.1f} MiB, "
+          f"{ranks[0]['allreduce_ms']:.2f} / {ranks[1]['allreduce_ms']:.2f} ms (rank 0 / 1); "
+          f"peak device memory per rank {ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} "
+          f"GiB; launches per rank {ranks[0]['launches']}")
+
+
+def eval_model(cfg, dev):
+    """The seeded bf16 model of the evaluation phases (graded class
+    biases, so that random weights make detections), cast for
+    inference."""
+    import torch
+
+    from trcnn_torch.models.faster_rcnn import cast_params_for_inference
+
+    model = dp_model(cfg, dev, torch.bfloat16)
+    with torch.no_grad():
+        model.head.cls_score.bias.copy_(torch.linspace(-3.0, 3.0, cfg.num_classes))
+    return cast_params_for_inference(model, torch.bfloat16).eval()
+
+
+def phase_dp_eval(dev, by_path, tmp):
+    """The evaluator sharded over two gloo ranks on the card: VGG-16 VOC,
+    bf16, 37 synthetic images of both canvas buckets, global batch 8 (4 a
+    rank), against this process's evaluator at batch 4 on the same
+    weights: each image once, its detections equal, and the same metrics
+    on both ranks."""
+    import numpy as np
+
+    from trcnn_torch.data import SyntheticDetection
+    from trcnn_torch.eval import Evaluator
+
+    cfg = dp_config("voc", "vgg16")
+    job = {"name": "vgg16_dp_eval", "kind": "eval", "cfg": cfg, "batch_size": 8,
+           "device": dev.type,
+           "dataset": {"n": 37, "hw_range": [[300, 800], [300, 800]], "seed": 7}}
+    model = eval_model(cfg, dev)
+    ref = Evaluator(model, cfg, SyntheticDetection(**job["dataset"]), batch_size=4, device=dev)
+    want = ref()
+    weights = digest(model)
+    del model
+    ranks = launch_ranks(job, tmp)
+    what = f"data parallel evaluation, VGG-16 VOC bf16, {DP_WORLD} gloo ranks"
+    if any(r["digest"] != weights for r in ranks):
+        raise AssertionError(f"{what}: a rank evaluates other weights")
+    if ranks[0]["detections"] is None or any(
+            [d["id"] for d in r["detections"]] != [d["id"] for d in ranks[0]["detections"]]
+            for r in ranks):
+        raise AssertionError(f"{what}: the ranks merged different lists")
+    ids = [d["id"] for d in ranks[0]["detections"]]
+    if sorted(ids) != sorted(d["id"] for d in ref.detections) or len(set(ids)) != 37:
+        raise AssertionError(f"{what}: images missing or repeated: {len(ids)} ids")
+    mine = {d["id"]: d for d in ranks[0]["detections"]}
+    n_dets = 0
+    for d in ref.detections:
+        m = mine[d["id"]]
+        if not all(np.array_equal(m[k], d[k]) for k in ("boxes", "scores", "classes")):
+            raise AssertionError(f"{what}: image {d['id']}'s detections differ")
+        n_dets += len(d["scores"])
+    keys = [k for k in want if k != "eval_seconds"]
+    if any(r["metrics"][k] != ranks[0]["metrics"][k] for r in ranks for k in keys):
+        raise AssertionError(f"{what}: the ranks' metrics differ")
+    buckets = set().union(*(r["timing"]["batches"] for r in ranks))
+    if len(buckets) != 2 or ranks[0]["metrics"]["eval_images"] != 37:
+        raise AssertionError(f"{what}: buckets {buckets}, {ranks[0]['metrics']['eval_images']} "
+                             "images")
+    for r, res in enumerate(ranks):
+        require_launches("vgg16 dp evaluate", res["launches"])
+        by_path[f"vgg16 dp evaluate rank {r}"] = res["launches"]
+    phase(f"{what} vs one process at batch 4: 37 images once each ({n_dets} detections equal), "
+          f"canvases {sorted(buckets)}, local images {[r['local_images'] for r in ranks]}; "
+          f"mAP {ranks[0]['metrics']['eval_mAP']:.6f} on both ranks, one process "
+          f"{want['eval_mAP']:.6f} (the merge orders images by rank, ties in score rank "
+          f"differently); eval seconds {[round(r['metrics']['eval_seconds'], 2) for r in ranks]} "
+          f"vs {want['eval_seconds']:.2f}; launches per rank {ranks[0]['launches']}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl_cli(dev, by_path, tmp):
+    """NCCL at world size 1: the train CLI with --distributed (RANK=0,
+    WORLD_SIZE=1 and a free port in the environment), VGG-16 VOC at batch
+    8, float32, 2 steps, the evaluator hook and a checkpoint each step,
+    against the same run without the flag.  Two runs of the same command
+    agree at the first step and part after it on the card (cuDNN's and
+    the index ops' backward add with atomics), so: the first step's log
+    line equal, and each trained tensor of its checkpoint within 1e-3 of
+    its move from the seeded init (L2), the frozen ones bit-equal; the
+    second step's losses and grad_norm within 1e-2 relative, its
+    checkpoint finite, the evaluation's image count equal and its mAP
+    within 1e-2.  Then, in the same group, the bf16
+    train step at batch 8 with and without it in turns (the step's own
+    all-reduces at world size 1), and the gradient all-reduce's time and
+    bytes."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from trcnn_torch import parallel
+    from trcnn_torch.cli import train
+    from trcnn_torch.config import voc_config
+    from trcnn_torch.entry import train_entry
+    from trcnn_torch.train.optim import is_frozen
+    from trcnn_torch.train.trainer import checkpoints
+
+    def run(out, extra):
+        text = io.StringIO()
+        argv = ["--dataset", "synthetic", "--batch_size", "8", "--iters", "2", "--eval_every",
+                "2", "--eval_limit", "16", "--log_every", "1", "--checkpoint_every", "1",
+                "--out", os.path.join(tmp, out), "--device", dev.type] + extra
+        with contextlib.redirect_stdout(text):
+            trainer, launches = count_path(
+                f"vgg16 train CLI {'nccl' if extra else 'without group'}", by_path,
+                lambda: train.run(argv))
+        log_file("cli.txt", f"$ trcnn_torch.cli.train {' '.join(argv)}\n{text.getvalue()}")
+        lines = [json.loads(x) for x in text.getvalue().splitlines() if x.startswith("{")]
+        cks = [torch.load(f, map_location="cpu") for _, f in checkpoints(os.path.join(tmp, out))]
+        return trainer, launches, lines, cks
+
+    plain = run("cli_plain", [])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        nccl = run("cli_nccl", ["--distributed"])
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dist.get_backend() != backend or nccl[0].group is None:
+            raise AssertionError(f"--distributed did not make a {backend} group for the trainer")
+        what = "train CLI --distributed (NCCL, world size 1)"
+        drop = ("imgs_per_sec", "eval_seconds")
+        (p1, p2, pe), (n1, n2, ne) = ([{k: v for k, v in r.items() if k not in drop}
+                                       for r in run_[2]] for run_ in (plain, nccl))
+        far = [k for k in ("loss", "rpn_cls_loss", "rpn_bbox_loss", "cls_loss", "bbox_loss",
+                           "grad_norm") if abs(n2[k] - p2[k]) > 1e-2 * abs(p2[k])]
+        if (n1 != p1 or far or ne["eval_images"] != pe["eval_images"]
+                or abs(ne["eval_mAP"] - pe["eval_mAP"]) > 1e-2):
+            raise AssertionError(f"{what}: logs {[n1, n2, ne]} vs without the flag "
+                                 f"{[p1, p2, pe]}")
+        init = {k: v.cpu() for k, v in dp_model(voc_config(), dev, torch.float32)
+                .state_dict().items()}
+        (a1, a2), (b1, b2) = plain[3], nccl[3]
+        if [c["step"] for c in (a1, a2, b1, b2)] != [1, 2, 1, 2]:
+            raise AssertionError(f"{what}: checkpoints at steps {[c['step'] for c in (a1, b1)]}")
+        worst, apart = 0.0, []
+        for k, v in a1["model"].items():
+            moved = float((v - init[k]).norm())
+            if is_frozen(k):
+                if moved or not torch.equal(b1["model"][k], v):
+                    raise AssertionError(f"{what}: frozen {k} moved")
+                continue
+            err = float((b1["model"][k] - v).norm())
+            worst = max(worst, err / moved if moved else err * float("inf"))
+            moved2 = float((a2["model"][k] - init[k]).norm())
+            apart.append(float((b2["model"][k] - a2["model"][k]).norm()) / max(moved2, 1e-30))
+        if worst > 1e-3 or not all(np.isfinite(apart)):
+            raise AssertionError(f"{what}: the step-1 checkpoint is {worst:.3e} of a move away "
+                                 "from the run without the flag")
+        phase(f"{what}: 2 steps at batch 8 + the eval hook; step 1 {n1} equal, its checkpoint "
+              f"within {worst:.2e} of each tensor's move (L2); step 2 within "
+              f"{max(abs(n2[k] - p2[k]) / abs(p2[k]) for k in p2 if p2[k]):.2e} relative, its "
+              f"checkpoint {max(apart):.2e} of a move apart at most (the runs part after step "
+              f"1); evaluation {ne}; launches {nccl[1]}")
+        del plain, nccl, a1, a2, b1, b2, init
+
+        step_fn, (state, batch) = train_entry(dev)
+        group = dist.group.WORLD
+        step_fn(state, batch)
+        ms = {"without": [], "with": []}
+        for arm in ("without", "with", "with", "without"):
+            state.group = group if arm == "with" else None
+            ms[arm].append(host_ms(lambda: step_fn(state, batch), 3))
+        grads = [p.grad.clone() for p in state.model.parameters() if p.grad is not None]
+        nbytes_ = sum(g.numel() * g.element_size() for g in grads)
+        reduce_ms = host_ms(lambda: parallel.all_reduce_sum_(grads, group), 5)
+        phase(f"  VGG-16 VOC train step b=8, median of 3, in turns: without the group "
+              f"{', '.join(f'{t:.2f}' for t in ms['without'])} ms, with it (NCCL, world size "
+              f"1) {', '.join(f'{t:.2f}' for t in ms['with'])} ms; the gradient all-reduce "
+              f"alone {reduce_ms:.3f} ms for {nbytes_ / 2**20:.1f} MiB")
+        del state, batch, grads
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+
+def phase_dp_small(dev):
+    """The small VGG-16 training config (dropout on) on two gloo ranks on
+    the card, float32: 2 steps on global batches of 2, each against one
+    process's step from the same state on the card, the replicas
+    bit-identical, the sampled sets equal, losses within DP_RTOL's first
+    entry, grad_norm within DP_NORM_RTOL.  The card test runs it too."""
+    import tempfile
+
+    import torch
+
+    cfg = dp_config("small", "vgg16")
+    job = {"name": "small_dp_train", "kind": "train", "cfg": cfg, "dtype": "float32",
+           "device": dev.type}
+    rng = np.random.default_rng(5)
+    gtb = torch.tensor([[[10, 12, 70, 60], [90, 30, 170, 100]], [[20, 15, 95, 80],
+                                                                 [100, 40, 150, 95]]],
+                       dtype=torch.float32)
+    batches = [{"images": torch.from_numpy(rng.integers(0, 256, (2, 128, 192, 3),
+                                                        dtype=np.uint8)),
+                "im_info": torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]]),
+                "gt_boxes": gtb, "gt_labels": torch.tensor([[3, 7], [5, 18]], dtype=torch.int32),
+                "gt_valid": torch.ones((2, 2), dtype=torch.bool)} for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = small_model("vgg16", cfg, 3, batches[0]["images"].float(), batches[0]["im_info"],
+                          head=False)
+        job["state"] = f"{tmp}/state.pt"
+        job["batches"] = f"{tmp}/batches.pt"
+        torch.save(cpu.state_dict(), job["state"])
+        torch.save(batches, job["batches"])
+        ranks = launch_ranks(job, tmp)
+    what = "small VGG-16 training config, 2 gloo ranks on the card"
+    ref = ranks[0]["refs"]
+    if not all(r["same_trunk"] for r in ref):
+        raise AssertionError(f"{what}: the trunk's bits at 1 image differ from those at 2")
+    compare_steps(ref, [r["steps"] for r in ranks], what, DP_RTOL)
+    phase(f"{what}: 2 steps, each equal to one process's from the same state (replicas "
+          f"bit-identical, sampled sets equal, losses within {DP_RTOL[0]:g}, grad_norm "
+          f"{DP_NORM_RTOL:g})")
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank_main(sys.argv[2], int(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -2703,6 +3422,13 @@ def main() -> int:
     by_path["resnet101 coco align detect"] = phase_coco_detect(dev, "resnet101", rec, "align")
     by_path["resnet101 coco align train"] = phase_coco_train(dev, "resnet101", rec, "align")
     phase_int8(dev, by_path)
+    # data parallelism: two gloo ranks share the card; NCCL at world size 1
+    phase_dp_small(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_dp_train(dev, by_path, tmp, "voc", "vgg16", 3)
+        phase_dp_train(dev, by_path, tmp, "coco", "resnet101", 2)
+        phase_dp_eval(dev, by_path, tmp)
+        phase_nccl_cli(dev, by_path, tmp)
     phase(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],

@@ -291,6 +291,16 @@ def test_small_config_training_step_matches_cpu(dev, backbone):
     _chip_smoke().phase_train_parity(dev, backbone)
 
 
+def test_two_gloo_ranks_on_the_card_equal_one_process(dev):
+    """chip_smoke's small data-parallel phase: two gloo ranks sharing the
+    card (one image each, the head's dropout on) take two float32 training
+    steps, each equal to one process's step from the same state on the same
+    global batch of two: the replicas bit-identical, the sampled sets
+    equal, losses and grad_norm within chip_smoke.DP_RTOL and
+    DP_NORM_RTOL."""
+    _chip_smoke().phase_dp_small(dev)
+
+
 @pytest.mark.parametrize("b", [1, 2])
 def test_nms_kernel_at_the_coco_epilogue(dev, b):
     """K1 at the COCO epilogue's width: 80 classes x 1000 RoIs = 80,000

@@ -51,7 +51,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 46, names\n"
         "for n in ('cli.forward', 'cli.evaluate', 'cli.train', 'data.loader', 'eval.evaluator',\n"
         "          'convert_chainer', 'convert_caffemodel', 'weights', 'data.coco',\n"
-        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant'):\n"
+        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant', 'parallel'):\n"
         "    assert 'trcnn_torch.' + n in names, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'trcnn', 'cv2', 'PIL')]\n"

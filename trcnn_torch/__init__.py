@@ -27,15 +27,21 @@ Package map (mirrors ``trcnn``):
                                R-CNN composite (detect, postprocess,
                                losses) over either backbone.
 - :mod:`trcnn_torch.train`   — the Caffe-order MomentumSGD, the train step
-                               and the trainer with checkpoint/resume,
-                               upload lookahead and the evaluator hook.
+                               (data-parallel over a process group) and the
+                               trainer with checkpoint/resume, upload
+                               lookahead and the evaluator hook.
 - :mod:`trcnn_torch.data`    — preprocessing (the port's own resize,
                                bit-equal to OpenCV's generic bilinear),
                                image files through cv2 or PIL, the VOC,
                                synthetic and concatenated datasets and the
                                batching loader.
-- :mod:`trcnn_torch.eval`    — VOC AP, the devkit detection files and the
-                               single-device evaluator.
+- :mod:`trcnn_torch.eval`    — VOC and COCO AP, the devkit detection files
+                               and the evaluator (sharded over a process
+                               group).
+- :mod:`trcnn_torch.parallel` — data parallelism over ``torch.distributed``:
+                               ``initialize`` (the JAX arguments or the
+                               environment), the ranks' collectives and
+                               the host gather of the sharded evaluator.
 - :mod:`trcnn_torch.cli`     — ``forward``, ``evaluate`` and ``train``, run
                                as ``python -m trcnn_torch.cli.<name>``.
 - :mod:`trcnn_torch.config`  — the port's copy of the config classes.

@@ -16,7 +16,22 @@ a union (VOC07+12 trainval).  ``--config`` picks the preset (classes,
 canvas, capacities, multi-scale shorter sides) and follows ``--dataset``
 by default; ``--dataset synthetic --config coco`` trains the 81-class
 recipe on the built-in synthetic set.  COCO training skips crowd boxes.
-One device: the card unless ``--device cpu``.
+One device a process: the card unless ``--device cpu``.
+
+Data parallel, one process per device, ``--batch_size`` the global batch
+(it must divide by the process count; each process loads its shard):
+
+    torchrun --nproc_per_node 8 -m trcnn_torch.cli.train --distributed ...
+    python -m trcnn_torch.cli.train --coordinator HOST:PORT --num_processes N \
+        --process_id I ...
+
+``--distributed`` reads the group from the environment (``torchrun``'s
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``);
+the three explicit flags name it (``--coordinator`` may also be a
+``file://`` URL).  NCCL on the card, gloo with ``--device cpu``.  Only
+process 0 logs and writes checkpoints; the evaluator hook shards the
+held-out set over the same group.  ``--no_mesh`` trains each process
+alone.
 """
 
 from __future__ import annotations
@@ -28,6 +43,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from trcnn_torch import parallel
 from trcnn_torch.cli import DTYPES, add_common_flags, make_config, setup_device
 from trcnn_torch.convert_chainer import merge_params
 from trcnn_torch.data import (COCODetection, ConcatDetection, DetectionLoader,
@@ -84,6 +100,17 @@ def parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     help="evaluate the first N held-out images")
     ap.add_argument("--eval_synthetic_n", type=int, default=256,
                     help="--dataset synthetic: the held-out set's size")
+    ap.add_argument("--no_mesh", action="store_true",
+                    help="no data parallelism: each process trains alone (debug)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="data parallel: process 0's address (or a file:// URL); with no "
+                         "--num_processes/--process_id the environment gives them")
+    ap.add_argument("--num_processes", type=int, default=None,
+                    help="data parallel: the number of processes")
+    ap.add_argument("--process_id", type=int, default=None,
+                    help="data parallel: this process's rank")
+    ap.add_argument("--distributed", action="store_true",
+                    help="data parallel: the group from the environment (torchrun)")
     add_common_flags(ap)
     args = ap.parse_args(argv)
     if args.dataset == "voc" and not args.dataset_root:
@@ -102,6 +129,13 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = parse(argv)
     dtype = DTYPES[args.dtype]
     device = setup_device(args.device, dtype)
+    if args.distributed or args.coordinator:
+        device = parallel.initialize(args.coordinator, args.num_processes, args.process_id,
+                                     backend="gloo" if device.type == "cpu" else "nccl")
+    world, rank = parallel.world_size(), parallel.rank()
+    if args.batch_size % world:
+        raise SystemExit(f"--batch_size {args.batch_size} must divide by the process count "
+                         f"{world} (it is the global batch)")
     cfg = make_config(args.backbone,
                       args.config or ("coco" if args.dataset == "coco" else "voc"))
     overrides = {field: getattr(args, flag) for flag, field in _OPTIM_FLAGS.items()
@@ -116,10 +150,13 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
         ds = COCODetection(args.coco_image_root, args.coco_ann_file)
     else:
         ds = SyntheticDetection(n=512, num_classes=cfg.num_classes, seed=args.seed)
-    print(f"dataset: {args.dataset} ({len(ds)} images), device: {device}", flush=True)
-    loader = DetectionLoader(ds, batch_size=args.batch_size, image_cfg=cfg.image, augment=True,
-                             shuffle=True, repeat=True, seed=args.seed,
-                             uint8_images=args.transfer == "uint8")
+    if parallel.is_main_process():
+        print(f"dataset: {args.dataset} ({len(ds)} images), device: {device}, "
+              f"{world} process(es)", flush=True)
+    loader = DetectionLoader(ds, batch_size=args.batch_size // world, image_cfg=cfg.image,
+                             augment=True, shuffle=True, repeat=True, seed=args.seed,
+                             uint8_images=args.transfer == "uint8", shard_id=rank,
+                             num_shards=world)
 
     model = make_model(cfg, dtype=dtype, device=device)
     model.init(torch.Generator(device=device).manual_seed(args.seed))
@@ -128,9 +165,14 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
         # seeded init
         imported = import_weights(args.pretrained_model, cfg, strict=False)
         model.load_state_dict(merge_params(model.state_dict(), imported))
-        print(f"warm-start: {len(imported)} tensors from {args.pretrained_model}", flush=True)
+        if parallel.is_main_process():
+            print(f"warm-start: {len(imported)} tensors from {args.pretrained_model}",
+                  flush=True)
 
-    evaluator = None
+    trainer = Trainer(model, cfg, TrainConfig(
+        total_iters=args.iters, log_every=args.log_every,
+        checkpoint_every=args.checkpoint_every, checkpoint_dir=args.out, seed=args.seed,
+        use_mesh=not args.no_mesh, eval_every=args.eval_every), device=device)
     if args.eval_every:
         if args.dataset == "voc":
             # the held-out set is the first root's (VOC07 test, also for 07+12)
@@ -141,14 +183,13 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
         else:
             eval_ds = SyntheticDetection(n=args.eval_synthetic_n, num_classes=cfg.num_classes,
                                          seed=args.seed + 1)
-        evaluator = Evaluator(model, cfg, eval_ds, limit=args.eval_limit,
-                              batch_size=args.batch_size, device=device)
-    trainer = Trainer(model, cfg, TrainConfig(
-        total_iters=args.iters, log_every=args.log_every,
-        checkpoint_every=args.checkpoint_every, checkpoint_dir=args.out, seed=args.seed,
-        eval_every=args.eval_every), device=device, evaluator=evaluator)
+        # on the trainer's group: each process evaluates its shard
+        trainer.evaluator = Evaluator(model, cfg, eval_ds, limit=args.eval_limit,
+                                      batch_size=args.batch_size, device=device,
+                                      group=trainer.group)
     trainer.fit(loader)
-    print("training done", flush=True)
+    if parallel.is_main_process():
+        print("training done", flush=True)
     return trainer
 
 

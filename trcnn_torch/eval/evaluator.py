@@ -1,5 +1,5 @@
-"""Detection evaluator on one device: the port's copy of
-``trcnn/eval/evaluator.py`` without its multi-host branch.
+"""Detection evaluator, on one device or sharded over a process group
+(port of ``trcnn/eval/evaluator.py``).
 
 ``Evaluator(model, cfg, dataset)(model)`` runs batched inference over the
 dataset (or its first ``limit`` images) on ``device`` (the card unless the
@@ -9,8 +9,16 @@ autograd, and the padded duplicates of a partial final batch are dropped.
 Ground truth comes from the annotations alone (no second image decode).
 It returns JAX's keys: ``eval_mAP`` and ``eval_AP/<class>`` (VOC), or
 ``eval_AP``, ``eval_AP50`` and ``eval_AP75`` (COCO), then ``eval_seconds``
-and ``eval_images``.  Sharding the evaluation over several processes waits
-for the data parallel slice.
+and ``eval_images``.
+
+Given a process group of more than one rank (the JAX evaluator's
+multi-host branch), each rank decodes and detects only its loader shard at
+``batch_size // world`` images a batch; the per-image detections, keyed by
+image id, are gathered on the host over gloo and merged in rank order,
+each image once (a partial global batch repeats images into other shards),
+so that every rank scores the whole set and returns the same numbers.
+``eval_images`` counts the set; ``last_local_images`` the images this rank
+detected.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from trcnn_torch import parallel
 from trcnn_torch.config import VOC_CLASSES, FasterRCNNConfig
 from trcnn_torch.data.loader import DetectionLoader, upload
 from trcnn_torch.eval.coco_ap import coco_eval
@@ -62,12 +71,14 @@ class Evaluator:
     :meth:`collect_detections`'s list and ``timing`` the seconds of the
     detection pass, of them those spent waiting on the loader and in
     detection (upload, detect, postprocess, the results back on the host),
-    the number of batches per canvas shape, and the number of images.
+    the number of batches per canvas shape, and the number of images this
+    rank detected.  ``group``: the process group to shard over (the
+    trainer's); None or a group of one rank evaluates in this process.
     """
 
     def __init__(self, model: FasterRCNN, cfg: FasterRCNNConfig, dataset, class_names=None,
                  batch_size: int = 8, limit: Optional[int] = None, metric: str = "voc07",
-                 score_thresh: Optional[float] = None, device="cuda"):
+                 score_thresh: Optional[float] = None, device="cuda", group=None):
         if metric not in METRICS:
             raise ValueError(f"metric {metric!r}: the port evaluates {METRICS}")
         self.model = model
@@ -80,10 +91,14 @@ class Evaluator:
         if self.limit < len(dataset):
             dataset = _Subset(dataset, self.limit)
         self.dataset = dataset
-        self.loader = DetectionLoader(dataset, batch_size=batch_size, image_cfg=cfg.image)
+        rank, world = parallel.shard_of(group)
+        self.group = group if world > 1 else None
+        self.loader = DetectionLoader(dataset, batch_size=max(batch_size // world, 1),
+                                      image_cfg=cfg.image, shard_id=rank, num_shards=world)
         self._annotations: Optional[Dict[str, dict]] = None
         self.detections: List[dict] = []
         self.timing: Dict = {}
+        self.last_local_images = 0
 
     def annotations(self) -> Dict[str, dict]:
         """{id: {"boxes", "labels", "difficult", "crowd"}}, parsed once."""
@@ -99,7 +114,9 @@ class Evaluator:
 
     def collect_detections(self, model: Optional[FasterRCNN] = None) -> List[dict]:
         """Inference over the dataset -> [{"id", "boxes" (D, 4) in original
-        image coordinates, "scores" (D,), "classes" (D,)}], one per image."""
+        image coordinates, "scores" (D,), "classes" (D,)}], one per image:
+        over the group, this rank's shard detected and every rank's
+        gathered."""
         model = self.model if model is None else model
         was_training = model.training
         model.eval()
@@ -137,7 +154,21 @@ class Evaluator:
             model.train(was_training)
         self.timing = {"wall_s": time.perf_counter() - start, "wait_s": wait,
                        "detect_s": detect, "batches": shapes, "images": len(detections)}
-        return detections
+        self.last_local_images = len(detections)
+        if self.group is None:
+            return detections
+        return self._merge(detections)
+
+    def _merge(self, local: List[dict]) -> List[dict]:
+        """Every rank's detections, gathered on the host and merged in rank
+        order, each dataset image once."""
+        merged, seen = [], set()
+        for shard in parallel.host_gather(local, self.group):
+            for d in shard:
+                if d["id"] not in seen:       # an image repeated into another shard
+                    seen.add(d["id"])
+                    merged.append(d)
+        return merged
 
     def __call__(self, model: Optional[FasterRCNN] = None) -> Dict[str, float]:
         t0 = time.time()

@@ -6,7 +6,11 @@ VGG-16 trunk, RPN, the batched proposal layer, RoI max-pool and the fc head.
 class-specific deltas, clip, grouped per-class NMS, and map back to
 original-image coordinates.  ``FasterRCNN.losses`` is the training forward:
 anchor targets, the RPN losses, proposals (train capacities) on the
-detached RPN outputs, proposal targets and the head losses.
+detached RPN outputs, proposal targets and the head losses.  Given a
+data-parallel group, each rank's losses are its shares of the global
+batch's (normalised by the global batch and its global valid-slot count,
+drawn from the global batch's draws), so that the ranks' gradients sum to
+the gradient one process computes on the whole batch.
 
 ``cfg.backbone`` picks the trunk and the RoI head, as
 ``trcnn/models/faster_rcnn.py:88-104`` does: "vgg16" (VGG-16 trunk, 7x7
@@ -26,6 +30,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from trcnn_torch import parallel
 from trcnn_torch.config import FasterRCNNConfig
 from trcnn_torch.models.losses import masked_mean, smooth_l1, softmax_ce
 from trcnn_torch.models.resnet import Bottleneck, FrozenBatchNorm, ResNet101C4, ResNetC5Head
@@ -139,19 +144,22 @@ class FasterRCNN(nn.Module):
         return torch.where(inside, x, 0.0)
 
     def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    shard: Tuple[int, int] = (0, 1)):
         """feat (B, fH, fW, C), rois (B, R, 4) -> (cls_score (B, R, K),
         bbox_pred (B, R, 4K)); all images' crops, pooled at ``pool_size``
         (RoI max pool, or RoIAlign with 2 x 2 samples per bin as
         ``trcnn/models/faster_rcnn.py:145-149`` calls it), go through the
         head as one (B*R) batch, in the layout the pool writes.
         ``generator`` draws the VGG head's dropout masks (training); None
-        runs the deterministic head."""
+        runs the deterministic head.  ``shard`` (i, n): this rank's slot
+        among n data-parallel ranks, whose masks are rows of the global
+        batch's (:meth:`draw_uniforms`)."""
         b, r = rois.shape[:2]
         pool = roi_align if self.cfg.roi.mode == "align" else roi_max_pool
         pooled = pool(feat, rois.contiguous(), self.pool_size, self.cfg.roi.spatial_scale)
         cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]),
-                                         generator)
+                                         generator, shard)
         return cls_score.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
 
     def detect(self, images: torch.Tensor, im_info: torch.Tensor) -> RawDetections:
@@ -175,22 +183,27 @@ class FasterRCNN(nn.Module):
         return props.rois, props.valid
 
     def draw_uniforms(self, b: int, feat_hw: Tuple[int, int], num_gt: int,
-                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+                      generator: torch.Generator, shard: Tuple[int, int] = (0, 1)
+                      ) -> Dict[str, torch.Tensor]:
         """The sampling layers' uniforms for a batch of ``b`` images: at_fg
         and at_bg (B, fH*fW*A) over the anchors, pt_fg and pt_bg
         (B, post_nms_topk_train + G) over the proposal candidates, drawn in
-        that order from ``generator`` on its device."""
+        that order from ``generator`` on its device.  ``shard`` (i, n): the
+        draws are the global batch's (n * b rows), of which rank i keeps
+        rows i*b to (i+1)*b, so that n ranks sample what one process does."""
+        i, ranks = shard
         n = feat_hw[0] * feat_hw[1] * self.cfg.anchors.num_anchors
         n_cand = self.cfg.proposals.post_nms_topk_train + num_gt
         dev = generator.device
-        return {k: torch.rand((b, n if k.startswith("at") else n_cand),
-                              generator=generator, device=dev) for k in UNIFORM_KEYS}
+        return {k: torch.rand((ranks * b, n if k.startswith("at") else n_cand),
+                              generator=generator, device=dev)[i * b:(i + 1) * b]
+                for k in UNIFORM_KEYS}
 
     def losses(self, images: torch.Tensor, im_info: torch.Tensor, gt_boxes: torch.Tensor,
                gt_labels: torch.Tensor, gt_valid: torch.Tensor, generator: torch.Generator,
                uniforms: Optional[Dict[str, torch.Tensor]] = None,
-               proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
+               proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               group=None) -> Dict[str, torch.Tensor]:
         """Training forward: the four losses of approximate joint training.
 
         images (B, H, W, 3) canvas (uint8 or mean-subtracted float), im_info
@@ -200,7 +213,18 @@ class FasterRCNN(nn.Module):
         masks.  ``uniforms`` hands in the four draws instead (the tests feed
         the JAX package's).  ``proposals`` (rois (B, P, 4), valid (B, P))
         replaces the proposal layer's output, so that two devices can be
-        compared on one proposal set.
+        compared on one proposal set.  ``uniforms`` and ``proposals`` hold
+        this process's images only.
+
+        ``group``: a data-parallel process group (None: one process).  The
+        batch is then this rank's shard of a global batch of equal shards,
+        and each value returned is this rank's share of the global batch's:
+        the per-image means divide by the global image count, ``cls_loss``
+        by the valid slots counted over the group (an image with no
+        candidate has none), and the draws are rows of the global batch's.
+        Summed over the ranks, the values and their gradients are what one
+        process computes on the whole batch, as under the JAX package's
+        mesh.
 
         Returns the seven-key dict of the JAX package: loss, rpn_cls_loss,
         rpn_bbox_loss, cls_loss, bbox_loss (float32 scalars with autograd)
@@ -211,13 +235,15 @@ class FasterRCNN(nn.Module):
                              "gradient (train fp32, deploy int8)")
         cfg = self.cfg
         b = images.shape[0]
+        shard = parallel.shard_of(group)
+        b_global = b * shard[1]
         feat = self.extractor(self._prepare(images, im_info))
         rpnout = self.rpn(feat)
         _, fh, fw, _ = feat.shape
         a = cfg.anchors.num_anchors
         n = fh * fw * a
         if uniforms is None:
-            uniforms = self.draw_uniforms(b, (fh, fw), gt_boxes.shape[1], generator)
+            uniforms = self.draw_uniforms(b, (fh, fw), gt_boxes.shape[1], generator, shard)
 
         # ---- RPN losses, normalised per image by the sampled-anchor count
         anchors = shifted_anchors(fh, fw, cfg.anchors, device=feat.device)
@@ -228,9 +254,9 @@ class FasterRCNN(nn.Module):
         deltas = rpnout.deltas.reshape(b, n, 4)
         denom = at.num_examples.float().clamp(min=1.0)
         ce = softmax_ce(logits, at.labels.clamp(min=0))
-        rpn_cls_loss = (torch.where(at.labels >= 0, ce, 0.0).sum(1) / denom).mean()
+        rpn_cls_loss = (torch.where(at.labels >= 0, ce, 0.0).sum(1) / denom).sum() / b_global
         l1 = smooth_l1(deltas - at.bbox_targets, cfg.loss.rpn_smooth_l1_sigma).sum(-1)
-        rpn_bbox_loss = (torch.where(at.labels == 1, l1, 0.0).sum(1) / denom).mean()
+        rpn_bbox_loss = (torch.where(at.labels == 1, l1, 0.0).sum(1) / denom).sum() / b_global
 
         # ---- proposals (no gradient through their coordinates) + sampling
         if proposals is None:
@@ -239,15 +265,17 @@ class FasterRCNN(nn.Module):
                               uniforms["pt_fg"], uniforms["pt_bg"], cfg.proposal_targets)
 
         # ---- head losses
-        cls_score, bbox_pred = self.roi_forward(feat, pt.rois, generator)
+        cls_score, bbox_pred = self.roi_forward(feat, pt.rois, generator, shard)
         s = pt.labels.shape[1]
-        cls_loss = masked_mean(softmax_ce(cls_score, pt.labels), pt.valid)
+        num_valid = pt.valid.sum().float()
+        parallel.all_reduce_sum_([num_valid], group)
+        cls_loss = masked_mean(softmax_ce(cls_score, pt.labels), pt.valid, denom=num_valid)
         pred = bbox_pred.reshape(b, s, cfg.num_classes, 4)
         pred = torch.gather(pred, 2, pt.labels.long()[..., None, None].expand(b, s, 1, 4))
         head_l1 = smooth_l1(pred[:, :, 0] - pt.bbox_targets,
                             cfg.loss.head_smooth_l1_sigma).sum(-1)
         # Caffe's SmoothL1Loss normalises by the RoI blob size (B*S)
-        bbox_loss = masked_mean(head_l1, pt.is_fg, denom=b * s)
+        bbox_loss = masked_mean(head_l1, pt.is_fg, denom=b_global * s)
 
         return {
             "loss": rpn_cls_loss + rpn_bbox_loss + cls_loss + bbox_loss,
@@ -255,8 +283,8 @@ class FasterRCNN(nn.Module):
             "rpn_bbox_loss": rpn_bbox_loss,
             "cls_loss": cls_loss,
             "bbox_loss": bbox_loss,
-            "num_fg_anchors": at.num_fg.float().mean(),
-            "num_fg_rois": pt.num_fg.float().mean(),
+            "num_fg_anchors": at.num_fg.float().sum() / b_global,
+            "num_fg_rois": pt.num_fg.float().sum() / b_global,
         }
 
     forward = detect

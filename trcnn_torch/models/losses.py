@@ -9,7 +9,7 @@ class's deltas of the foreground rows.  Smooth-L1 is 0.5 sigma^2 x^2 where
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -28,9 +28,13 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor,
-                denom: Optional[float] = None) -> torch.Tensor:
-    """sum(values * mask) / max(denom, 1), denom defaulting to count(mask)."""
+                denom: Optional[Union[float, torch.Tensor]] = None) -> torch.Tensor:
+    """sum(values * mask) / max(denom, 1), denom defaulting to count(mask);
+    a tensor denom (a count summed over data-parallel ranks) stays on the
+    device."""
     num = torch.where(mask, values, 0.0).sum()
     if denom is None:
-        return num / torch.clamp(mask.sum().to(values.dtype), min=1.0)
+        denom = mask.sum().to(values.dtype)
+    if torch.is_tensor(denom):
+        return num / torch.clamp(denom, min=1.0)
     return num / max(float(denom), 1.0)

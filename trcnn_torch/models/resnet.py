@@ -187,8 +187,9 @@ class ResNetC5Head(nn.Module):
         self.cls_score = nn.Linear(2048, num_classes, device=device)
         self.bbox_pred = nn.Linear(2048, 4 * num_classes, device=device)
 
-    def forward(self, pooled: torch.Tensor, generator=None):
+    def forward(self, pooled: torch.Tensor, generator=None, shard=(0, 1)):
         """pooled (R, P, P, 1024) -> (cls_score (R, K), bbox_pred (R, 4K)),
-        float32.  ``generator`` is unused: the head has no dropout."""
+        float32.  ``generator`` and ``shard`` are unused: the head has no
+        dropout."""
         y = spatial_mean(self.res5(pooled.to(self.dtype).permute(0, 3, 1, 2))).float()
         return dense(y, self.cls_score), dense(y, self.bbox_pred)

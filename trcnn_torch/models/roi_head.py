@@ -6,7 +6,8 @@ bbox_pred run in float32.  The pooled (R, 7, 7, C) NHWC crop flattens in
 permutation.  In training, dropout follows the fc6 and fc7 ReLUs: the mask
 is drawn from the caller's generator and kept values are divided by the
 keep probability, as flax's ``nn.Dropout`` does (``F.dropout`` takes no
-generator).
+generator); a data-parallel rank keeps its rows of the global batch's
+masks.
 """
 
 from __future__ import annotations
@@ -38,11 +39,14 @@ class VGG16RoIHead(nn.Module):
         self.cls_score = nn.Linear(hidden, num_classes, device=device)
         self.bbox_pred = nn.Linear(hidden, 4 * num_classes, device=device)
 
-    def _dropout(self, y: torch.Tensor, generator) -> torch.Tensor:
+    def _dropout(self, y: torch.Tensor, generator, shard: Tuple[int, int]) -> torch.Tensor:
         keep = 1.0 - self.dropout_rate
         if generator is None or keep == 1.0:
             return y
-        mask = torch.empty_like(y).bernoulli_(keep, generator=generator).bool()
+        i, n = shard
+        rows = y.shape[0]
+        mask = torch.empty((n * rows,) + y.shape[1:], dtype=y.dtype, device=y.device)
+        mask = mask.bernoulli_(keep, generator=generator)[i * rows:(i + 1) * rows].bool()
         return torch.where(mask, y / keep, 0.0)
 
     def _fc(self, y: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -50,13 +54,14 @@ class VGG16RoIHead(nn.Module):
             return torch.relu(qdense(y, layer).to(self.dtype))
         return torch.relu(dense(y, layer))
 
-    def forward(self, pooled: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, pooled: torch.Tensor, generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
         """pooled (R, P, P, C) -> (cls_score (R, K), bbox_pred (R, 4K)), f32.
         ``generator``: draws the dropout masks; None is the deterministic
-        (inference) head."""
+        (inference) head.  ``shard`` (i, n): the masks are rows i of n
+        equal blocks of the global batch's masks."""
         y = pooled.reshape(pooled.shape[0], -1).to(self.dtype)
-        y = self._dropout(self._fc(y, self.fc6), generator)
-        y = self._dropout(self._fc(y, self.fc7), generator)
+        y = self._dropout(self._fc(y, self.fc6), generator, shard)
+        y = self._dropout(self._fc(y, self.fc7), generator, shard)
         y = y.float()
         return dense(y, self.cls_score), dense(y, self.bbox_pred)

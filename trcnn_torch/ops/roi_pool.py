@@ -90,38 +90,48 @@ def roi_bin_bounds(rois: torch.Tensor, spatial_scale: float, out_size: int,
 
 
 def _bin_windows(feat: torch.Tensor, rois: torch.Tensor, out_size: int,
-                 spatial_scale: float):
-    """Yield (ph, pw, vals, ok, yy, xx) for every bin: its cells gathered
-    into a window as large as the largest bin, vals (B, R, M, C) in feat's
-    dtype with -inf past the bin's end, ok (B, R, M) the in-bin mask, yy
-    and xx (B, R, M) the cells' rows and columns.  One bin at a time keeps
-    the gathered block at (B, R, M, C).  The JAX code sizes the window
-    statically (``max_bin_extent``), which covers RoIs up to the map's
-    size, as proposals clipped to the image are; sized from the bounds, the
-    window also covers larger RoIs exactly, as the kernels and the numpy
-    oracles do."""
+                 spatial_scale: float, chunk: int = 256):
+    """Yield (idx, ph, pw, vals, ok, yy, xx) for every group of RoIs and
+    every bin: idx (n,) the group's RoIs as flat (image, RoI) indices into
+    (B * R); the bin's cells gathered into a window as large as the
+    group's largest bin, vals (n, M, C) in feat's dtype with -inf past the
+    bin's end, ok (n, M) the in-bin mask, yy and xx (n, M) the cells' rows
+    and columns.  The RoIs go in groups of ``chunk``, in the order of
+    their largest bin's area, so that a window sized for the largest bin
+    of all does not make every small RoI gather mostly padding; one bin at
+    a time keeps the gathered block at (n, M, C).  The JAX code sizes the
+    window statically (``max_bin_extent``), which covers RoIs up to the
+    map's size, as proposals clipped to the image are; sized from the
+    bounds, the window also covers larger RoIs exactly, as the kernels and
+    the numpy oracles do."""
     b, h, w, c = feat.shape
-    r = rois.shape[1]
-    hstart, hend, wstart, wend = roi_bin_bounds(rois, spatial_scale, out_size, h, w)
-    mbh = max(int((hend - hstart).amax()), 1) if hend.numel() else 1
-    mbw = max(int((wend - wstart).amax()), 1) if wend.numel() else 1
-    flat = feat.reshape(b, h * w, c)
-    bidx = torch.arange(b, device=feat.device)[:, None, None]
-    dh = torch.arange(mbh, dtype=torch.int32, device=feat.device)
-    dw = torch.arange(mbw, dtype=torch.int32, device=feat.device)
-    for ph in range(out_size):
-        h_idx = hstart[..., ph, None] + dh                    # (B, R, MBH)
-        h_ok = h_idx < hend[..., ph, None]
-        h_idx = h_idx.clamp(0, h - 1)
-        for pw in range(out_size):
-            w_idx = wstart[..., pw, None] + dw                # (B, R, MBW)
-            w_ok = w_idx < wend[..., pw, None]
-            w_idx = w_idx.clamp(0, w - 1)
-            yy = h_idx[..., :, None].expand(b, r, mbh, mbw).reshape(b, r, -1)
-            xx = w_idx[..., None, :].expand(b, r, mbh, mbw).reshape(b, r, -1)
-            ok = (h_ok[..., :, None] & w_ok[..., None, :]).reshape(b, r, -1)
-            vals = flat[bidx, (yy * w + xx).long()]           # (B, R, M, C)
-            yield ph, pw, torch.where(ok[..., None], vals, float("-inf")), ok, yy, xx
+    n_rois = b * rois.shape[1]
+    bounds = roi_bin_bounds(rois, spatial_scale, out_size, h, w)
+    hstart, hend, wstart, wend = (t.reshape(n_rois, out_size) for t in bounds)
+    ext_h = (hend - hstart).amax(-1).clamp(min=1)
+    ext_w = (wend - wstart).amax(-1).clamp(min=1)
+    order = torch.argsort(ext_h * ext_w, stable=True)
+    base = torch.arange(b, device=feat.device).repeat_interleave(rois.shape[1]) * (h * w)
+    flat = feat.reshape(b * h * w, c)
+    for lo in range(0, n_rois, chunk):
+        idx = order[lo:lo + chunk]
+        n = idx.numel()
+        mbh, mbw = int(ext_h[idx].max()), int(ext_w[idx].max())
+        dh = torch.arange(mbh, dtype=torch.int32, device=feat.device)
+        dw = torch.arange(mbw, dtype=torch.int32, device=feat.device)
+        for ph in range(out_size):
+            h_idx = hstart[idx, ph, None] + dh                # (n, MBH)
+            h_ok = h_idx < hend[idx, ph, None]
+            h_idx = h_idx.clamp(0, h - 1)
+            for pw in range(out_size):
+                w_idx = wstart[idx, pw, None] + dw            # (n, MBW)
+                w_ok = w_idx < wend[idx, pw, None]
+                w_idx = w_idx.clamp(0, w - 1)
+                yy = h_idx[:, :, None].expand(n, mbh, mbw).reshape(n, -1)
+                xx = w_idx[:, None, :].expand(n, mbh, mbw).reshape(n, -1)
+                ok = (h_ok[:, :, None] & w_ok[:, None, :]).reshape(n, -1)
+                vals = flat[base[idx, None] + (yy * w + xx).long()]   # (n, M, C)
+                yield idx, ph, pw, torch.where(ok[..., None], vals, float("-inf")), ok, yy, xx
 
 
 def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
@@ -129,10 +139,11 @@ def roi_max_pool_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7
     """feat (B, H, W, C), rois (B, R, 4) image coords -> (B, R, P, P, C):
     each bin's window reduced with max, empty bins 0."""
     b, _, _, c = feat.shape
-    out = feat.new_empty((b, rois.shape[1], out_size, out_size, c))
-    for ph, pw, vals, ok, _, _ in _bin_windows(feat, rois, out_size, spatial_scale):
-        out[:, :, ph, pw] = torch.where(~ok.any(dim=2)[..., None], 0.0, vals.amax(dim=2))
-    return out
+    r = rois.shape[1]
+    out = feat.new_empty((b * r, out_size, out_size, c))
+    for idx, ph, pw, vals, ok, _, _ in _bin_windows(feat, rois, out_size, spatial_scale):
+        out[idx, ph, pw] = torch.where(~ok.any(dim=1)[..., None], 0.0, vals.amax(dim=1))
+    return out.reshape(b, r, out_size, out_size, c)
 
 
 def roi_pool_backward_plain(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tensor,
@@ -146,17 +157,19 @@ def roi_pool_backward_plain(feat: torch.Tensor, rois: torch.Tensor, g: torch.Ten
     g (as float32) to that cell of a float32 dfeat.
     """
     b, h, w, c = feat.shape
-    dflat = torch.zeros((b, h * w, c), dtype=torch.float32, device=feat.device)
+    r = rois.shape[1]
+    dflat = torch.zeros((b * h * w, c), dtype=torch.float32, device=feat.device)
+    gflat = g.reshape(b * r, out_size, out_size, c)
     big = h * w + 1
-    for ph, pw, vals, ok, yy, xx in _bin_windows(feat, rois, out_size, spatial_scale):
+    for idx, ph, pw, vals, ok, yy, xx in _bin_windows(feat, rois, out_size, spatial_scale):
         vals = vals.float()
-        hit = ok[..., None] & (vals == vals.amax(dim=2, keepdim=True))
+        hit = ok[..., None] & (vals == vals.amax(dim=1, keepdim=True))
         key = (xx * h + yy)[..., None].long()                 # column-major
-        kmin = torch.where(hit, key, big).amin(dim=2)         # (B, R, C)
+        kmin = torch.where(hit, key, big).amin(dim=1)         # (n, C)
         nonempty = kmin < big
-        cell = torch.where(nonempty, (kmin % h) * w + kmin // h, 0)
-        contrib = torch.where(nonempty, g[:, :, ph, pw].float(), 0.0)
-        dflat.scatter_add_(1, cell, contrib)
+        cell = (idx // r * (h * w))[:, None] + (kmin % h) * w + kmin // h
+        contrib = torch.where(nonempty, gflat[idx, ph, pw].float(), 0.0)
+        dflat.scatter_add_(0, torch.where(nonempty, cell, 0), contrib)
     return dflat.reshape(b, h, w, c).to(feat.dtype)
 
 

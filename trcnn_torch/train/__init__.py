@@ -2,5 +2,6 @@
 ``trcnn/train``)."""
 
 from trcnn_torch.train.optim import CaffeSGD, learning_rate  # noqa: F401
-from trcnn_torch.train.step import TrainState, step_generator, train_step  # noqa: F401
+from trcnn_torch.train.step import (TrainState, device_batch, step_generator,  # noqa: F401
+                                    train_step)
 from trcnn_torch.train.trainer import TrainConfig, Trainer  # noqa: F401

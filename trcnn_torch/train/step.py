@@ -1,4 +1,5 @@
-"""The train step on one device (port of ``trcnn/train/step.py``).
+"""The train step, on one device or data-parallel over a process group
+(port of ``trcnn/train/step.py``).
 
 One step: the training forward (``FasterRCNN.losses``), backward, the
 gradients' global norm, and the Caffe-order update, all on the device the
@@ -10,17 +11,35 @@ generators' numbers are not JAX's; the tests hand in JAX's draws.  The
 three stages run under ``torch.profiler`` spans named in ``STAGES``, which
 record nothing when no profiler runs.
 
-The mesh and data parallelism wait for a later slice.
+Data parallelism is the JAX step's ``data`` mesh axis over a
+``torch.distributed`` group (:mod:`trcnn_torch.parallel`): every rank holds
+the whole model (:meth:`TrainState.create` broadcasts rank 0's parameters,
+the counterpart of ``create_sharded``), takes its own equal shard of the
+global batch (:func:`device_batch`), and computes its share of the global
+batch's losses (``FasterRCNN.losses``); after backward one all-reduce sums
+the gradients, flattened into one buffer, before the global norm, the clip
+and the update, so that every replica applies the same update to the same
+bits, and the metrics are summed to the global batch's on every rank.  The
+reduction is written out rather than left to DDP's hooks: VGG-16's conv1
+block runs in the forward-only kernel K3 and never has a gradient, which
+DDP would take for an error, and one sum after backward is what XLA
+inserts from the JAX mesh's shardings.  ``make_mesh`` and
+``batch_sharding`` have no counterpart: the group is the mesh's ``data``
+axis, and a rank's rows of the batch are its loader's shard.  The mesh's
+``model`` axis (``param_shardings``: fc6/fc7 tensor parallelism) is not
+ported; every parameter is replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch.profiler import record_function
 
+from trcnn_torch import parallel
+from trcnn_torch.data.loader import Batch, upload
 from trcnn_torch.models.faster_rcnn import FasterRCNN
 from trcnn_torch.train.optim import CaffeSGD, global_norm
 
@@ -31,16 +50,42 @@ STAGES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (float32 master parameters), its optimizer and the number
-    of steps taken.  :func:`train_step` updates all three in place."""
+    """The model (float32 master parameters), its optimizer, the number of
+    steps taken and the data-parallel group (None: one process).
+    :func:`train_step` updates the first three in place."""
 
     model: FasterRCNN
     optimizer: CaffeSGD
     step: int = 0
+    group: Any = None
 
     @classmethod
-    def create(cls, model: FasterRCNN) -> "TrainState":
-        return cls(model, CaffeSGD(model, model.cfg.optim, model.cfg.backbone))
+    def create(cls, model: FasterRCNN, group=None) -> "TrainState":
+        """The state of a fresh run; with ``group``, every rank's parameters
+        and buffers are overwritten with the first rank's, so that the
+        replicas start from the same bits."""
+        with torch.no_grad():
+            parallel.broadcast_(list(model.parameters()) + list(model.buffers()), group)
+        return cls(model, CaffeSGD(model, model.cfg.optim, model.cfg.backbone), group=group)
+
+
+def device_batch(batch: Union[Batch, Mapping[str, torch.Tensor]], device: torch.device
+                 ) -> Dict[str, torch.Tensor]:
+    """A loader Batch (numpy) or a dict of tensors -> the five
+    ``BATCH_KEYS`` tensors on ``device``; host memory goes to the card
+    through pinned buffers, asynchronously.  Data-parallel, each process
+    uploads only its own shard (its loader's ``shard_id``), as
+    ``jax.make_array_from_process_local_data`` lifts each process's rows
+    into the global batch."""
+    if isinstance(batch, Batch):
+        return {k: upload(getattr(batch, k), device) for k in BATCH_KEYS}
+    out = {}
+    for k in BATCH_KEYS:
+        t = batch[k]
+        if t.device.type == "cpu" and device.type == "cuda":
+            t = t.contiguous().pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -49,28 +94,39 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
-               uniforms: Optional[Dict[str, torch.Tensor]] = None
+               uniforms: Optional[Dict[str, torch.Tensor]] = None,
+               proposals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step, in place on ``state``.
 
     ``batch``: images (B, H, W, 3), im_info (B, 3), gt_boxes (B, G, 4),
-    gt_labels (B, G), gt_valid (B, G), on the model's device.  ``uniforms``
-    replaces the generator's sampling draws (tests).  Returns the losses
-    dict plus ``grad_norm`` (the global norm over every gradient, the frozen
-    ones counted as zero), as 0-d tensors on the device.
+    gt_labels (B, G), gt_valid (B, G), on the model's device: this rank's
+    shard when ``state.group`` is set.  ``uniforms`` and ``proposals``
+    replace the generator's sampling draws and the proposal layer's output
+    for the same images (tests).  Returns the losses dict plus
+    ``grad_norm`` (the global norm over every gradient, the frozen ones
+    counted as zero), as 0-d tensors on the device: the global batch's
+    values, on every rank.
     """
     model = state.model
     model.train()
     gen = step_generator(seed, state.step, batch["images"].device)
     with record_function(STAGES[0]):
-        out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen, uniforms=uniforms)
+        out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen, uniforms=uniforms,
+                           proposals=proposals, group=state.group)
     with record_function(STAGES[1]):
         model.zero_grad(set_to_none=True)
         out["loss"].backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        parallel.all_reduce_sum_(grads, state.group)
     with record_function(STAGES[2]):
-        norm = global_norm(p.grad for p in model.parameters() if p.grad is not None)
+        norm = global_norm(grads)
         state.optimizer.step(state.step, norm)
     state.step += 1
     metrics = {k: v.detach() for k, v in out.items()}
+    if state.group is not None:
+        values = torch.stack(list(metrics.values()))
+        parallel.all_reduce_sum_([values], state.group)
+        metrics = dict(zip(metrics, values.unbind()))
     metrics["grad_norm"] = norm
     return metrics

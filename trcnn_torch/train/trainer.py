@@ -13,7 +13,15 @@ device from pinned memory ``upload_lookahead`` batches ahead of the step
 that takes them, so that the copies overlap the steps before.  An
 ``evaluator`` (``model -> {metric: float}``, e.g.
 :class:`trcnn_torch.eval.Evaluator`) runs every ``eval_every`` steps and
-after the last step.  The device mesh waits for the data-parallel slice.
+after the last step.
+
+Data parallel (``TrainConfig.use_mesh``, the default, once
+:func:`trcnn_torch.parallel.initialize` has made a process group): the step
+runs over the group (:mod:`trcnn_torch.train.step`), each process feeding
+its own loader shard, and ``imgs_per_sec`` counts the global batch.  Only
+the first rank logs and writes checkpoints; the others wait for the file
+at a barrier.  Every rank restores onto its own device, and a checkpoint
+holds the replicas' one state, so a run resumes at any world size.
 """
 
 from __future__ import annotations
@@ -23,14 +31,15 @@ import json
 import os
 import re
 import time
-from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from trcnn_torch import parallel
 from trcnn_torch.config import FasterRCNNConfig
-from trcnn_torch.data.loader import Batch, upload
 from trcnn_torch.models.faster_rcnn import FasterRCNN
-from trcnn_torch.train.step import BATCH_KEYS, TrainState, train_step
+from trcnn_torch.train.step import TrainState, device_batch, train_step
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
 
@@ -43,24 +52,9 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     keep_checkpoints: int = 5
     seed: int = 0
+    use_mesh: bool = True               # data parallel over the process group, if one exists
     eval_every: int = 0                 # run the evaluator every N steps (0: off)
     upload_lookahead: int = 2           # batches uploaded ahead of the step
-
-
-def to_device(batch: Union[Batch, Mapping[str, torch.Tensor]], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
-    """A loader Batch (numpy) or a dict of tensors -> the five
-    ``BATCH_KEYS`` tensors on ``device``; host memory goes to the card
-    through pinned buffers, asynchronously."""
-    if isinstance(batch, Batch):
-        return {k: upload(getattr(batch, k), device) for k in BATCH_KEYS}
-    out = {}
-    for k in BATCH_KEYS:
-        t = batch[k]
-        if t.device.type == "cpu" and device.type == "cuda":
-            t = t.contiguous().pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
 
 
 def checkpoints(directory: str) -> List[Tuple[int, str]]:
@@ -84,7 +78,9 @@ class Trainer:
     the evaluator hook.
 
     ``model`` moves to ``device``: the card unless the caller asks for the
-    CPU."""
+    CPU (data parallel: the rank's device, from ``initialize``).  ``group``
+    is the data-parallel group: the default group when ``tcfg.use_mesh``
+    and one exists, else None (one process)."""
 
     def __init__(self, model: FasterRCNN, cfg: FasterRCNNConfig,
                  tcfg: TrainConfig = TrainConfig(), device="cuda",
@@ -93,25 +89,31 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.evaluator = evaluator
-        self.state = TrainState.create(model.to(self.device))
+        self.group = dist.group.WORLD if tcfg.use_mesh and dist.is_initialized() else None
+        self.state = TrainState.create(model.to(self.device), self.group)
         if tcfg.checkpoint_dir:
             os.makedirs(tcfg.checkpoint_dir, exist_ok=True)
             self.maybe_restore()
 
     # ---- checkpoints
 
+    def _main(self) -> bool:
+        return parallel.shard_of(self.group)[0] == 0
+
     def save(self) -> None:
+        """Write ``ckpt_<step>.pt`` (the first rank; the others wait for it)."""
         if not self.tcfg.checkpoint_dir:
             return
         st = self.state
         path = os.path.join(self.tcfg.checkpoint_dir, f"ckpt_{st.step:08d}.pt")
-        if os.path.exists(path):                # this step is saved already
-            return
-        torch.save({"model": st.model.state_dict(), "optimizer": st.optimizer.state_dict(),
-                    "step": st.step}, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for _, old in checkpoints(self.tcfg.checkpoint_dir)[:-self.tcfg.keep_checkpoints]:
-            os.remove(old)
+        if self._main() and not os.path.exists(path):   # else this step is saved already
+            torch.save({"model": st.model.state_dict(),
+                        "optimizer": st.optimizer.state_dict(), "step": st.step},
+                       path + ".tmp")
+            os.replace(path + ".tmp", path)
+            for _, old in checkpoints(self.tcfg.checkpoint_dir)[:-self.tcfg.keep_checkpoints]:
+                os.remove(old)
+        parallel.barrier(self.group)
 
     def maybe_restore(self) -> bool:
         """Resume from the newest checkpoint, if there is one."""
@@ -123,7 +125,8 @@ class Trainer:
         self.state.model.load_state_dict(ck["model"])
         self.state.optimizer.load_state_dict(ck["optimizer"])
         self.state.step = ck["step"]
-        print(f"[trainer] resumed from checkpoint at step {step}", flush=True)
+        if self._main():
+            print(f"[trainer] resumed from checkpoint at step {step}", flush=True)
         return True
 
     # ---- loop
@@ -132,7 +135,7 @@ class Trainer:
         """Run up to ``total_iters`` steps over ``batches``; log one JSON line
         every ``log_every`` steps, checkpoint every ``checkpoint_every`` and
         at the end, evaluate every ``eval_every`` steps and after the last
-        one."""
+        one.  Data parallel, ``batches`` are this rank's shards."""
         tcfg = self.tcfg
         total = tcfg.total_iters or self.cfg.optim.total_iters
         st = self.state
@@ -143,7 +146,7 @@ class Trainer:
         def enqueue() -> None:
             nxt = next(it, None)
             if nxt is not None:
-                window.append(to_device(nxt, self.device))
+                window.append(device_batch(nxt, self.device))
 
         for _ in range(max(1, tcfg.upload_lookahead)):
             enqueue()
@@ -151,8 +154,8 @@ class Trainer:
             batch = window.pop(0)
             enqueue()
             metrics = train_step(st, batch, tcfg.seed)
-            imgs += batch["images"].shape[0]
-            if st.step % tcfg.log_every == 0 or st.step == total:
+            imgs += batch["images"].shape[0] * parallel.shard_of(self.group)[1]
+            if (st.step % tcfg.log_every == 0 or st.step == total) and self._main():
                 dt = time.time() - t0
                 print(json.dumps({"step": st.step, "imgs_per_sec": round(imgs / max(dt, 1e-9), 2),
                                   **{k: round(float(v), 5) for k, v in metrics.items()}}),
@@ -171,9 +174,11 @@ class Trainer:
         return st
 
     def run_eval(self, step: int) -> Dict[str, float]:
-        """Evaluate the current model; print the scalars without a class in
+        """Evaluate the current model (every rank: the evaluator gathers over
+        the group); the first rank prints the scalars without a class in
         their name as one JSON line."""
         results = {k: float(v) for k, v in self.evaluator(self.state.model).items()}
-        print(json.dumps({"step": step, **{k: round(v, 4) for k, v in results.items()
-                                           if "/" not in k}}), flush=True)
+        if self._main():
+            print(json.dumps({"step": step, **{k: round(v, 4) for k, v in results.items()
+                                               if "/" not in k}}), flush=True)
         return results
