@@ -89,10 +89,13 @@ Phases, one line each, any failure raises and exits non-zero:
     replicas bit-identical, the sampled sets equal, losses and grad_norm
     within ``DP_RTOL``), with the all-reduce's time and bytes; the
     evaluator sharded over the two ranks on 37 images of both canvas
-    buckets against one process (each image once, its detections equal);
-    each rank a counted path.  Then NCCL at world size 1: the train CLI
-    with ``--distributed`` against the same run without it, and the step
-    with and without the group in turns.
+    buckets against one process (each image once, its detections equal,
+    the same metrics on ground truth made from the one process's
+    detections, mAP above 0); each rank a counted path whose kernel calls
+    it replays through the plain versions on the card, as does the one
+    process.  Then NCCL at world size 1: the train CLI with
+    ``--distributed`` against the same run without it (its kernel calls
+    replayed), and the step with and without the group in turns.
 
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
@@ -1388,10 +1391,10 @@ def recording(captured, first_of_shape=False):
             setattr(mod, name, originals[key])
 
 
-def replay(captured, what):
+def replay(captured, what) -> str:
     """Each captured call through its plain version: K1 equal, K2 and K5
     bit-equal, K3, K4 and K6 within their tolerances in the call's dtype
-    (``stem_limit``, ``bwd_limit``)."""
+    (``stem_limit``, ``bwd_limit``).  Prints and returns the summary."""
     import torch
 
     from trcnn_torch.ops import nms, roi_align, roi_pool, stem
@@ -1421,10 +1424,12 @@ def replay(captured, what):
             worst[key] = max(worst.get(key, 0.0), err / lim if lim else 0.0)
     shapes = {k: sorted({str(tuple(a[0].shape) if torch.is_tensor(a[0]) else a[0]) for a, _ in v})
               for k, v in captured.items() if k != "nms"}
-    phase(f"{what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())}; "
-          f"plain replay agrees (K1 equal, K2 and K5 bit-equal"
-          + "".join(f", {k} at most {w:.2f} of its limit" for k, w in worst.items())
-          + f"); feat shapes {shapes}")
+    msg = (f"{what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())}; "
+           f"plain replay agrees (K1 equal, K2 and K5 bit-equal"
+           + "".join(f", {k} at most {w:.2f} of its limit" for k, w in worst.items())
+           + f"); feat shapes {shapes}")
+    phase(msg)
+    return msg
 
 
 def path_kernel_rows(rec, call, what):
@@ -2949,7 +2954,9 @@ def dp_train_job(job, dev, rank, world, group):
     global batch (:func:`reference_step`).  The other ranks start from
     other weights, which the state's broadcast overwrites.  Returns the
     steps, the references, the launches of the data-parallel steps alone,
-    peak memory and one timed all-reduce of the gradients."""
+    the replay of their kernel calls (the first of each input shape in
+    each step, every K1 call) through the plain versions on this rank's
+    device, peak memory and one timed all-reduce of the gradients."""
     import torch
 
     from trcnn_torch import _build, parallel
@@ -2970,18 +2977,21 @@ def dp_train_job(job, dev, rank, world, group):
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    refs, steps = [], []
+    refs, steps, captured = [], [], {}
     launches = dict.fromkeys(_build.launch_counts, 0)
     for batch in batches:
         if rank == 0:
             refs.append(reference_step(state, batch, world))
         sync()
         before = dict(_build.launch_counts)
-        steps += run_steps(state, [rows(batch, rank, world)])
+        with recording(captured, first_of_shape=True):
+            steps += run_steps(state, [rows(batch, rank, world)])
         sync()
         for k in launches:
             launches[k] += _build.launch_counts[k] - before[k]
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    checked = replay(captured, f"rank {rank}'s data-parallel steps")
+    del captured
     grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
     times = []
     for _ in range(3):
@@ -2992,13 +3002,15 @@ def dp_train_job(job, dev, rank, world, group):
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return {"steps": steps, "refs": refs, "digest0": digest0, "launches": launches,
-            "peak_gib": peak, "allreduce_ms": statistics.median(times),
+            "replay": checked, "peak_gib": peak, "allreduce_ms": statistics.median(times),
             "allreduce_bytes": sum(g.numel() * g.element_size() for g in grads)}
 
 
 def dp_eval_job(job, dev, rank, world, group):
-    """A rank's share of the sharded evaluation; its detections (every
-    rank's, merged), metrics, timing and launches."""
+    """A rank's share of the sharded evaluation (on ``job["gt"]``'s ground
+    truth, where given); its detections (every rank's, merged), metrics,
+    timing, launches and the replay of its kernel calls (the first of each
+    input shape, every K1 call) through the plain versions."""
     import torch
 
     from trcnn_torch import _build
@@ -3007,15 +3019,21 @@ def dp_eval_job(job, dev, rank, world, group):
 
     cfg = config_from_dict(job["cfg"])
     model = eval_model(cfg, dev)
-    ev = Evaluator(model, cfg, SyntheticDetection(**job["dataset"]), batch_size=job["batch_size"],
-                   device=dev, group=group)
+    ds = SyntheticDetection(**job["dataset"])
+    if job.get("gt"):
+        ds = GroundTruthFrom(ds, torch.load(job["gt"], weights_only=False))
+    ev = Evaluator(model, cfg, ds, batch_size=job["batch_size"], device=dev, group=group)
     _build.reset_launch_counts()
-    metrics = ev()
+    captured = {}
+    with recording(captured, first_of_shape=True):
+        metrics = ev()
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    checked = replay(captured, f"rank {rank}'s share of the evaluation")
     return {"metrics": metrics, "detections": ev.detections, "timing": ev.timing,
-            "local_images": ev.last_local_images, "launches": dict(_build.launch_counts),
-            "digest": digest(model)}
+            "local_images": ev.last_local_images, "launches": launches,
+            "replay": checked, "digest": digest(model)}
 
 
 def dp_rank_main(spec_path: str, rank: int) -> int:
@@ -3130,9 +3148,12 @@ def phase_dp_train(dev, by_path, tmp, preset: str, backbone: str, n_steps: int):
         phase(f"  step {i + 1}, rank 0 (one process): " + ", ".join(
             f"{k} {got[k]:.6g} ({v:.6g})" for k, v in want["metrics"].items()))
     phase(f"  step ms (host clock; the ranks time-share the card, rank 1 waits while rank 0 "
-          f"takes the one-process step): one process {[round(s['ms'], 2) for s in ref]}; "
+          f"takes the one-process step; the ranks' steps include the capture of their kernel "
+          f"inputs): one process {[round(s['ms'], 2) for s in ref]}; "
           + "; ".join(f"rank {r} {[round(s['ms'], 2) for s in res['steps']]}"
                       for r, res in enumerate(ranks)))
+    for res in ranks:
+        phase(f"  {res['replay']}")
     phase(f"  gradient all-reduce over gloo: {ranks[0]['allreduce_bytes'] / 2**20:.1f} MiB, "
           f"{ranks[0]['allreduce_ms']:.2f} / {ranks[1]['allreduce_ms']:.2f} ms (rank 0 / 1); "
           f"peak device memory per rank {ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} "
@@ -3153,23 +3174,93 @@ def eval_model(cfg, dev):
     return cast_params_for_inference(model, torch.bfloat16).eval()
 
 
+class GroundTruthFrom:
+    """A dataset's images with other ground truth: ``gt`` maps an image id
+    to its (boxes (G, 4), labels (G,)); the loader's examples stay the
+    dataset's."""
+
+    def __init__(self, dataset, gt: dict):
+        self.dataset, self.gt = dataset, gt
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def get_example(self, i):
+        return self.dataset.get_example(i)
+
+    def get_size(self, i):
+        return self.dataset.get_size(i)
+
+    def get_annotation(self, i):
+        ann = self.dataset.get_annotation(i)
+        boxes, labels = self.gt[ann["id"]]
+        return {"id": ann["id"], "boxes": boxes, "labels": labels}
+
+    __getitem__ = get_example
+
+
+def gt_from_detections(detections):
+    """Ground truth that the detections hit, scored the same in any
+    order of images: every detection scoring at least the median distinct
+    score becomes a gt box of its class (a true positive: test-time NMS
+    leaves no other detection of its class within IoU 0.5 of it, so the
+    rest are false positives, every one scoring below every true positive,
+    and ties in score never mix the two), and every third image also
+    gets a gt box that no detection hits (recall, and so AP, below 1)."""
+    scores = np.unique(np.concatenate([d["scores"] for d in detections]))
+    s_hi = scores[len(scores) // 2]
+    gt, missed = {}, 0
+    for i, d in enumerate(sorted(detections, key=lambda d: d["id"])):
+        keep = d["scores"] >= s_hi
+        boxes = [d["boxes"][keep]]
+        labels = [d["classes"][keep].astype(np.int32)]
+        if i % 3 == 0 and len(d["classes"]):
+            corner = np.asarray([[1.0, 1.0, 9.0, 9.0]], np.float32)
+            same = d["boxes"][d["classes"] == d["classes"][0]]
+            iw = np.clip(np.minimum(same[:, 2], 9.0) - np.maximum(same[:, 0], 1.0) + 1, 0, None)
+            ih = np.clip(np.minimum(same[:, 3], 9.0) - np.maximum(same[:, 1], 1.0) + 1, 0, None)
+            area = (same[:, 2] - same[:, 0] + 1) * (same[:, 3] - same[:, 1] + 1)
+            if (iw * ih / (area + 81.0 - iw * ih) > 0.5).any():
+                raise AssertionError(f"a detection hits the corner box of {d['id']}")
+            boxes.append(corner)
+            labels.append(d["classes"][:1].astype(np.int32))
+            missed += 1
+        gt[d["id"]] = (np.concatenate(boxes).astype(np.float32), np.concatenate(labels))
+    return gt, int(sum(len(v[1]) for v in gt.values())) - missed, missed
+
+
 def phase_dp_eval(dev, by_path, tmp):
     """The evaluator sharded over two gloo ranks on the card: VGG-16 VOC,
     bf16, 37 synthetic images of both canvas buckets, global batch 8 (4 a
     rank), against this process's evaluator at batch 4 on the same
-    weights: each image once, its detections equal, and the same metrics
-    on both ranks."""
-    import numpy as np
+    weights.  A first one-process pass (its kernel calls recorded and
+    replayed through the plain versions) makes the ground truth
+    (:func:`gt_from_detections`); a second one scores it.  Each image
+    once, its detections equal, each rank's kernel calls replayed through
+    the plain versions, and the same metrics on both ranks as in the one
+    process, mAP above 0."""
+    import os
+
+    import torch
 
     from trcnn_torch.data import SyntheticDetection
     from trcnn_torch.eval import Evaluator
 
     cfg = dp_config("voc", "vgg16")
-    job = {"name": "vgg16_dp_eval", "kind": "eval", "cfg": cfg, "batch_size": 8,
-           "device": dev.type,
-           "dataset": {"n": 37, "hw_range": [[300, 800], [300, 800]], "seed": 7}}
+    dataset = {"n": 37, "hw_range": [[300, 800], [300, 800]], "seed": 7}
     model = eval_model(cfg, dev)
-    ref = Evaluator(model, cfg, SyntheticDetection(**job["dataset"]), batch_size=4, device=dev)
+    base = SyntheticDetection(**dataset)
+    first = Evaluator(model, cfg, base, batch_size=4, device=dev)
+    captured = {}
+    with recording(captured, first_of_shape=True):
+        first_dets = first.collect_detections()
+    replay(captured, "one-process evaluation at batch 4")
+    del captured
+    gt, n_hit, n_missed = gt_from_detections(first_dets)
+    job = {"name": "vgg16_dp_eval", "kind": "eval", "cfg": cfg, "batch_size": 8,
+           "device": dev.type, "dataset": dataset, "gt": os.path.join(tmp, "dp_eval_gt.pt")}
+    torch.save(gt, job["gt"])
+    ref = Evaluator(model, cfg, GroundTruthFrom(base, gt), batch_size=4, device=dev)
     want = ref()
     weights = digest(model)
     del model
@@ -3185,15 +3276,21 @@ def phase_dp_eval(dev, by_path, tmp):
     if sorted(ids) != sorted(d["id"] for d in ref.detections) or len(set(ids)) != 37:
         raise AssertionError(f"{what}: images missing or repeated: {len(ids)} ids")
     mine = {d["id"]: d for d in ranks[0]["detections"]}
+    again = {d["id"]: d for d in first_dets}
     n_dets = 0
     for d in ref.detections:
-        m = mine[d["id"]]
-        if not all(np.array_equal(m[k], d[k]) for k in ("boxes", "scores", "classes")):
-            raise AssertionError(f"{what}: image {d['id']}'s detections differ")
+        for src, other in (("the ranks'", mine[d["id"]]), ("the first pass's", again[d["id"]])):
+            if not all(np.array_equal(other[k], d[k]) for k in ("boxes", "scores", "classes")):
+                raise AssertionError(f"{what}: image {d['id']}'s detections in {src} list "
+                                     f"differ from the one process's")
         n_dets += len(d["scores"])
     keys = [k for k in want if k != "eval_seconds"]
-    if any(r["metrics"][k] != ranks[0]["metrics"][k] for r in ranks for k in keys):
-        raise AssertionError(f"{what}: the ranks' metrics differ")
+    for r, res in enumerate(ranks):
+        far = {k: (res["metrics"][k], want[k]) for k in keys if res["metrics"][k] != want[k]}
+        if far:
+            raise AssertionError(f"{what}: rank {r}'s metrics differ from one process's: {far}")
+    if not want["eval_mAP"] > 0:
+        raise AssertionError(f"{what}: mAP {want['eval_mAP']} on gt the detections hit")
     buckets = set().union(*(r["timing"]["batches"] for r in ranks))
     if len(buckets) != 2 or ranks[0]["metrics"]["eval_images"] != 37:
         raise AssertionError(f"{what}: buckets {buckets}, {ranks[0]['metrics']['eval_images']} "
@@ -3203,10 +3300,13 @@ def phase_dp_eval(dev, by_path, tmp):
         by_path[f"vgg16 dp evaluate rank {r}"] = res["launches"]
     phase(f"{what} vs one process at batch 4: 37 images once each ({n_dets} detections equal), "
           f"canvases {sorted(buckets)}, local images {[r['local_images'] for r in ranks]}; "
-          f"mAP {ranks[0]['metrics']['eval_mAP']:.6f} on both ranks, one process "
-          f"{want['eval_mAP']:.6f} (the merge orders images by rank, ties in score rank "
-          f"differently); eval seconds {[round(r['metrics']['eval_seconds'], 2) for r in ranks]} "
-          f"vs {want['eval_seconds']:.2f}; launches per rank {ranks[0]['launches']}")
+          f"gt from the one process's detections ({n_hit} hit, {n_missed} missed): mAP "
+          f"{ranks[0]['metrics']['eval_mAP']:.6f} on both ranks, equal to the one process's, "
+          f"every per-class AP equal too; eval seconds "
+          f"{[round(r['metrics']['eval_seconds'], 2) for r in ranks]} vs "
+          f"{want['eval_seconds']:.2f}; launches per rank {ranks[0]['launches']}")
+    for res in ranks:
+        phase(f"  {res['replay']}")
 
 
 def free_port() -> int:
@@ -3228,7 +3328,9 @@ def phase_nccl_cli(dev, by_path, tmp):
     its move from the seeded init (L2), the frozen ones bit-equal; the
     second step's losses and grad_norm within 1e-2 relative, its
     checkpoint finite, the evaluation's image count equal and its mAP
-    within 1e-2.  Then, in the same group, the bf16
+    within 1e-2; the kernel calls of the run with the flag (the first of
+    each input shape, every K1 call) replayed through the plain versions.
+    Then, in the same group, the bf16
     train step at batch 8 with and without it in turns (the step's own
     all-reduces at world size 1), and the gradient all-reduce's time and
     bytes."""
@@ -3266,7 +3368,11 @@ def phase_nccl_cli(dev, by_path, tmp):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        nccl = run("cli_nccl", ["--distributed"])
+        captured = {}
+        with recording(captured, first_of_shape=True):
+            nccl = run("cli_nccl", ["--distributed"])
+        replay(captured, "train CLI --distributed (first call of each kernel input shape)")
+        del captured
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if dist.get_backend() != backend or nccl[0].group is None:
             raise AssertionError(f"--distributed did not make a {backend} group for the trainer")

@@ -148,6 +148,32 @@ def test_evaluator_detections_equal_the_port_detect(tiny):
         want["AP"], want["AP50"], want["AP75"])
 
 
+def test_ground_truth_from_detections_scores_alike_in_any_image_order(tiny):
+    """chip_smoke's data-parallel evaluation check scores ground truth made
+    from one process's detections (``gt_from_detections``): every
+    detection is then a true or a false positive whatever the images'
+    order, so the mAP of the list in any order of images (the ranks' merge
+    orders them by rank) is the same, and above 0; the ground truth also
+    holds boxes that no detection hits."""
+    from chip_smoke import GroundTruthFrom, gt_from_detections
+
+    cfg, model, ds = tiny
+    dets = Evaluator(model, cfg, ds, batch_size=2, score_thresh=0.0,
+                     device="cpu").collect_detections()
+    gt, hit, missed = gt_from_detections(dets)
+    assert hit > 0 and missed == 2
+    scored = GroundTruthFrom(ds, gt)
+    anns = {a["id"]: a for a in (scored.get_annotation(i) for i in range(len(scored)))}
+    maps = {voc_ap.voc_mean_ap(voc_ap.build_records(VOC_CLASSES, order, anns))[0]
+            for order in (dets, dets[::-1], dets[2:] + dets[:2])}
+    assert len(maps) == 1 and maps.pop() > 0
+    ev = Evaluator(model, cfg, scored, batch_size=2, score_thresh=0.0, device="cpu")
+    assert ev(model)["eval_mAP"] == voc_ap.voc_mean_ap(voc_ap.build_records(
+        VOC_CLASSES, dets, anns))[0]
+    assert scored.get_example(3)["id"] == ds.get_example(3)["id"]
+    assert scored.get_size(3) == ds.get_size(3) and len(scored) == len(ds)
+
+
 @pytest.mark.parametrize("total,n_batches,want", [(3, 3, [2, 3]), (10, 3, [2, 3])],
                          ids=["last_step", "batches_run_out"])
 def test_trainer_eval_hook_fires_every_n_steps_and_at_the_end(tiny, total, n_batches, want):

@@ -45,13 +45,18 @@ def _case(seed, b=2, h=38, w=64, c=16, r=24, plateaus=False):
     return feat, rois.astype(np.float32), g
 
 
+@jax.jit
+def _jax_dfeat(feat, rois, g):
+    pool = jax.vmap(functools.partial(jax_roi_max_pool, out_size=7, spatial_scale=1 / 16))
+    return jax.vjp(lambda x: pool(x, rois), feat)[1](g)[0]
+
+
 def _jax_vjp(feat, rois, g, dtype):
     """dfeat of the JAX pool at feat in ``dtype`` (its pooled output, and so
-    the cotangent, is float32 either way)."""
-    pool = jax.vmap(functools.partial(jax_roi_max_pool, out_size=7, spatial_scale=1 / 16))
+    the cotangent, is float32 either way); one compiled graph per input
+    shape and dtype."""
     f = jnp.asarray(feat).astype(dtype)
-    _, vjp = jax.vjp(lambda x: pool(x, jnp.asarray(rois)), f)
-    return np.asarray(vjp(jnp.asarray(g))[0]).astype(np.float32)
+    return np.asarray(_jax_dfeat(f, jnp.asarray(rois), jnp.asarray(g))).astype(np.float32)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
@@ -64,6 +69,36 @@ def test_backward_bit_equal_to_jax_vjp(dtype, plateaus):
     assert got.dtype == tdt
     np.testing.assert_array_equal(got.float().numpy(), want)
     assert np.abs(want).sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_many_rois_of_mixed_sizes_bit_equal_to_oracle(dtype):
+    """More RoIs than one group of the plain versions' windows
+    (``roi_pool.ROI_CHUNK``), from one cell to the whole map and in no
+    order of size, with plateaus that make exact ties: the forward and, on
+    integer-valued g, the backward bit-equal to the JAX package's numpy
+    oracles of its ``roi_max_pool`` and VJP (on the feature map rounded to
+    ``dtype``; JAX's own graphs take 17 s to compile at 300 RoIs here)."""
+    h, w, r = 20, 30, roi_pool.ROI_CHUNK + 44
+    feat, _, g = _case(12, b=1, h=h, w=w, c=4, r=r, plateaus=True)
+    rng = np.random.default_rng(13)
+    x1, y1 = rng.uniform(0, w * 16 - 20, r), rng.uniform(0, h * 16 - 20, r)
+    side = np.exp(rng.uniform(np.log(4.0), np.log(w * 16.0), (r, 2)))
+    rois = np.stack([x1, y1, np.minimum(x1 + side[:, 0], w * 16 - 1),
+                     np.minimum(y1 + side[:, 1], h * 16 - 1)], -1)[None].astype(np.float32)
+    tfeat = T(feat).to(_TORCH[dtype])
+    rounded = tfeat.float().numpy()[0]
+    got = roi_pool.roi_max_pool_plain(tfeat, T(rois))
+    np.testing.assert_array_equal(got.float().numpy()[0],
+                                  roi_max_pool_oracle_numpy(rounded, rois[0]))
+    dgot = roi_pool.roi_pool_backward_plain(tfeat, T(rois), T(g).to(tfeat.dtype))
+    want = roi_pool_backward_oracle_numpy(rounded, rois[0], g[0])
+    np.testing.assert_array_equal(dgot.float().numpy()[0],
+                                  T(want).to(tfeat.dtype).float().numpy())
+    hs, he, ws, we = roi_pool.roi_bin_bounds(T(rois), 1 / 16, 7, h, w)
+    area = ((he - hs).amax(-1) * (we - ws).amax(-1))[0]
+    assert int(area.min()) <= 1 and int(area.max()) >= (h // 7) * (w // 7)
+    assert np.abs(dgot.float().numpy()).sum() > 0
 
 
 def test_backward_bit_equal_to_oracle_beyond_map_size():

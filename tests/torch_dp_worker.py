@@ -6,7 +6,8 @@
 SPEC is a JSON file: {"store": "file://..." or null, "world": N, "out": dir,
 "jobs": [...]}, each job with its "cfg" (``dataclasses.asdict`` of a
 config); with --cli, {"cfg": ..., "argv": the CLI's arguments, to which
-``--process_id RANK`` is added}.
+``--process_id RANK`` is added}, and with a "name" and "out" the trained
+replica's digest and step are written to ``<out>/<name>.<rank>.pt``.
 With a store the rank joins a gloo group of ``world``; without one it is
 the single process the group is held against.  Each job's result is
 written to ``<out>/<name>.<rank>.pt`` (``<out>/<name>.alone.pt`` without a
@@ -116,7 +117,11 @@ def main(argv: List[str]) -> int:
 
         cfg = config_from_dict(spec["cfg"])
         train.make_config = lambda backbone, preset="voc": cfg.replace(backbone=backbone)
-        return train.main(spec["argv"] + ["--process_id", str(rank)])
+        trainer = train.run(spec["argv"] + ["--process_id", str(rank)])
+        if spec.get("name"):
+            torch.save({"digest": digest(trainer.state.model), "step": trainer.state.step},
+                       os.path.join(spec["out"], f"{spec['name']}.{rank}.pt"))
+        return 0
     group = None
     if spec["store"]:
         parallel.initialize(spec["store"], spec["world"], rank, backend="gloo", timeout=TIMEOUT)

@@ -89,14 +89,18 @@ def roi_bin_bounds(rois: torch.Tensor, spatial_scale: float, out_size: int,
     return hstart, hend, wstart, wend
 
 
+# RoIs per window group of the plain versions
+ROI_CHUNK = 256
+
+
 def _bin_windows(feat: torch.Tensor, rois: torch.Tensor, out_size: int,
-                 spatial_scale: float, chunk: int = 256):
+                 spatial_scale: float):
     """Yield (idx, ph, pw, vals, ok, yy, xx) for every group of RoIs and
     every bin: idx (n,) the group's RoIs as flat (image, RoI) indices into
     (B * R); the bin's cells gathered into a window as large as the
     group's largest bin, vals (n, M, C) in feat's dtype with -inf past the
     bin's end, ok (n, M) the in-bin mask, yy and xx (n, M) the cells' rows
-    and columns.  The RoIs go in groups of ``chunk``, in the order of
+    and columns.  The RoIs go in groups of ``ROI_CHUNK``, in the order of
     their largest bin's area, so that a window sized for the largest bin
     of all does not make every small RoI gather mostly padding; one bin at
     a time keeps the gathered block at (n, M, C).  The JAX code sizes the
@@ -113,8 +117,8 @@ def _bin_windows(feat: torch.Tensor, rois: torch.Tensor, out_size: int,
     order = torch.argsort(ext_h * ext_w, stable=True)
     base = torch.arange(b, device=feat.device).repeat_interleave(rois.shape[1]) * (h * w)
     flat = feat.reshape(b * h * w, c)
-    for lo in range(0, n_rois, chunk):
-        idx = order[lo:lo + chunk]
+    for lo in range(0, n_rois, ROI_CHUNK):
+        idx = order[lo:lo + ROI_CHUNK]
         n = idx.numel()
         mbh, mbw = int(ext_h[idx].max()), int(ext_w[idx].max())
         dh = torch.arange(mbh, dtype=torch.int32, device=feat.device)

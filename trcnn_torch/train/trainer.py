@@ -98,7 +98,11 @@ class Trainer:
     # ---- checkpoints
 
     def _main(self) -> bool:
-        return parallel.shard_of(self.group)[0] == 0
+        """The process that logs and writes checkpoints: rank 0 of the
+        default group, whatever the trainer's group (under ``use_mesh=False``
+        every process trains alone, but they share the checkpoint
+        directory)."""
+        return parallel.is_main_process()
 
     def save(self) -> None:
         """Write ``ckpt_<step>.pt`` (the first rank; the others wait for it)."""
@@ -113,7 +117,7 @@ class Trainer:
             os.replace(path + ".tmp", path)
             for _, old in checkpoints(self.tcfg.checkpoint_dir)[:-self.tcfg.keep_checkpoints]:
                 os.remove(old)
-        parallel.barrier(self.group)
+        parallel.barrier(dist.group.WORLD if dist.is_initialized() else None)
 
     def maybe_restore(self) -> bool:
         """Resume from the newest checkpoint, if there is one."""
