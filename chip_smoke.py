@@ -96,6 +96,19 @@ Phases, one line each, any failure raises and exits non-zero:
     process.  Then NCCL at world size 1: the train CLI with
     ``--distributed`` against the same run without it (its kernel calls
     replayed), and the step with and without the group in turns.
+12. tensor parallelism (``trcnn_torch.parallel.tensor``): four gloo ranks
+    on a 2 x 2 (data, model) grid share the card (``--dp-rank`` again):
+    VGG-16 VOC float32 training at a global batch of 8, fc6 and fc7 cut in
+    two, 3 steps, each against one process's step from the same state (the
+    whole state gathered before it: sampled sets equal, losses and
+    grad_norm within ``DP_RTOL``, each trained tensor's move within
+    ``GRID_MOVE_RTOL`` of the one process's), replicas and every
+    replicated parameter bit-identical, each rank's parameter bytes, its
+    collectives' time and bytes per step by axis, its launches and its
+    kernel calls replayed through the plain versions; the state written by
+    the grid's Trainer restored bit-equal at 1 x 4 and at world size 1; one
+    bfloat16 grid step against one process's (``GRID_BF16_RTOL``); then
+    ``trcnn_torch.entry.dryrun_multichip(4)`` on the card.
 
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
@@ -161,7 +174,9 @@ REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "resnet101 coco dp train": ("nms", "roi_pool", "roi_pool_bwd"),
             "vgg16 dp evaluate": ("nms", "roi_pool", "stem"),
             "vgg16 train CLI nccl": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
-            "vgg16 train CLI without group": ("nms", "roi_pool", "roi_pool_bwd", "stem")}
+            "vgg16 train CLI without group": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            # tensor parallel: each rank's launches
+            "vgg16 grid train": ("nms", "roi_pool", "roi_pool_bwd", "stem")}
 BACKBONES = ("vgg16", "resnet101")
 NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
@@ -2746,9 +2761,10 @@ def rows(tree, rank: int, world: int):
     return type(tree)(rows(v, rank, world) for v in tree)
 
 
-def digest(model, momentum=None) -> str:
+def digest(model, momentum=None, names=None) -> str:
     """sha256 over every parameter's bytes (and, given the optimizer's
-    momentum buffers, theirs): equal digests, bit-identical replicas."""
+    momentum buffers, theirs; given ``names``, those parameters only):
+    equal digests, bit-identical replicas."""
     import hashlib
 
     import torch
@@ -2758,6 +2774,8 @@ def digest(model, momentum=None) -> str:
 
     h = hashlib.sha256()
     for name, p in model.named_parameters():
+        if names is not None and name not in names:
+            continue
         h.update(name.encode())
         h.update(raw(p))
         if momentum is not None:
@@ -2849,7 +2867,8 @@ def compare_steps(ref, ranks, what, rtol):
 
 
 def launch_ranks(spec: dict, tmp: str):
-    """Start DP_WORLD ranks (this script with ``--dp-rank``), wait for them
+    """Start ``spec["world"]`` ranks (DP_WORLD by default; this script with
+    ``--dp-rank``), wait for them
     (at most ``DP_TIMEOUT_S``, every rank killed if one fails or the time
     runs out) and return each rank's results."""
     import dataclasses
@@ -2857,7 +2876,7 @@ def launch_ranks(spec: dict, tmp: str):
 
     import torch
 
-    world = DP_WORLD
+    world = spec.get("world", DP_WORLD)
     spec = dict(spec, store=f"file://{tmp}/store_{spec['name']}", world=world, out=tmp,
                 cfg=dataclasses.asdict(spec["cfg"]))
     path = os.path.join(tmp, f"spec_{spec['name']}.json")
@@ -2917,13 +2936,16 @@ def dp_model(cfg, dev, dtype, state=None):
     return model.init(torch.Generator(device=dev).manual_seed(0))
 
 
-def reference_step(state, batch, world: int):
+def reference_step(state, batch, world: int, keep_params: bool = False):
     """One process's step from ``state`` on the whole ``batch`` (as
     :func:`run_steps` reports it, and whether the trunk gives the batch's
     ``world`` blocks, one rank's images each, the bits it gives the
     batch), ``state`` restored after.  Where it does not, the step samples
-    from the proposals the blocks give: those the ranks sample from."""
+    from the proposals the blocks give: those the ranks sample from.
+    ``keep_params``: the parameters after the step too."""
     import torch
+
+    from trcnn_torch import parallel
 
     model = state.model
     same = trunk_equal(model, batch["images"], batch["im_info"], world)
@@ -2936,14 +2958,16 @@ def reference_step(state, batch, world: int):
         proposals = [tuple(torch.cat(t) for t in zip(*parts))]
     params = {k: p.detach().clone() for k, p in model.named_parameters()}
     momentum = {k: v.clone() for k, v in state.optimizer.momentum.items()}
-    step, group = state.step, state.group
-    state.group = None
+    step, mesh = state.step, state.mesh
+    state.mesh = parallel.Mesh()
     (ref,) = run_steps(state, [batch], proposals=proposals)
     with torch.no_grad():
+        if keep_params:
+            ref["params"] = {k: p.detach().clone() for k, p in model.named_parameters()}
         for k, p in model.named_parameters():
             p.copy_(params[k])
             state.optimizer.momentum[k].copy_(momentum[k])
-    state.step, state.group = step, group
+    state.step, state.mesh = step, mesh
     ref["same_trunk"] = same
     return ref
 
@@ -2971,7 +2995,7 @@ def dp_train_job(job, dev, rank, world, group):
         with torch.no_grad():
             for p in model.parameters():
                 p.add_(1.0)
-    state = TrainState.create(model, group)
+    state = TrainState.create(model, parallel.make_mesh())
     digest0 = digest(model)
     batches = [{k: v.to(dev) for k, v in b.items()} for b in torch.load(job["batches"])]
     sync()
@@ -3052,7 +3076,7 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
     dev = parallel.initialize(spec["store"], spec["world"], rank,
                               local_device_ids=[0] if cuda else None, backend="gloo")
     try:
-        job = {"train": dp_train_job, "eval": dp_eval_job}[spec["kind"]]
+        job = {"train": dp_train_job, "eval": dp_eval_job, "grid": grid_job}[spec["kind"]]
         res = job(spec, dev, rank, spec["world"], dist.group.WORLD)
         torch.save(res, f"{spec['out']}/{spec['name']}.{rank}.pt")
     finally:
@@ -3413,11 +3437,11 @@ def phase_nccl_cli(dev, by_path, tmp):
         del plain, nccl, a1, a2, b1, b2, init
 
         step_fn, (state, batch) = train_entry(dev)
-        group = dist.group.WORLD
+        group, mesh = dist.group.WORLD, parallel.make_mesh()
         step_fn(state, batch)
         ms = {"without": [], "with": []}
         for arm in ("without", "with", "with", "without"):
-            state.group = group if arm == "with" else None
+            state.mesh = mesh if arm == "with" else parallel.Mesh()
             ms[arm].append(host_ms(lambda: step_fn(state, batch), 3))
         grads = [p.grad.clone() for p in state.model.parameters() if p.grad is not None]
         nbytes_ = sum(g.numel() * g.element_size() for g in grads)
@@ -3478,6 +3502,331 @@ def phase_dp_small(dev):
           f"{DP_NORM_RTOL:g})")
 
 
+# ---------------------------------------------------------------- tensor parallel
+#
+# Four gloo ranks on a 2 x 2 (data, model) grid share the one card, each
+# this script with ``--dp-rank``, as the data-parallel ranks are: fc6 and
+# fc7 sharded over the model axis (``trcnn_torch.parallel.tensor``).
+
+GRID = (2, 2)
+# A grid step against one process's step from the same state: each trained
+# tensor's move within this share (L2) of the one process's move, by
+# compute dtype (TF32 off).  The grid sums fc7's partial products, the
+# crops' gradient and the gradients in other orders, and its convolutions
+# run at 4 images where the one process's run at 8; in bfloat16 each
+# rank's fc7 partial product is rounded to bfloat16 before the float32
+# sum, where one product is rounded once.
+GRID_MOVE_RTOL = {"float32": 1e-2, "bfloat16": 1e-1}
+# losses (and grad_norm) in bfloat16: each relative to one process's (the
+# first entry where the trunk gives the same bits at 4 images as at 8,
+# the second elsewhere, as DP_RTOL)
+GRID_BF16_RTOL = (1e-2, 1e-2)
+
+
+@contextlib.contextmanager
+def collectives(records: list, mesh):
+    """Time every ``all_reduce`` (synchronised on the card before and
+    after): (axis, bytes, ms) per call, the axis "data" or "model" by the
+    mesh's group it runs over."""
+    import torch
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def timed(t, *args, group=None, **kw):
+        sync = torch.cuda.synchronize if t.is_cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = real(t, *args, group=group, **kw)
+        sync()
+        axis = "data" if group is mesh.data else "model" if group is mesh.model else "other"
+        records.append((axis, t.numel() * t.element_size(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield records
+    finally:
+        dist.all_reduce = real
+
+
+def by_axis(records) -> dict:
+    """{axis: [calls, bytes, ms]} of :func:`collectives`' records."""
+    out = {}
+    for axis, nb, ms in records:
+        c = out.setdefault(axis, [0, 0, 0.0])
+        c[0], c[1], c[2] = c[0] + 1, c[1] + nb, c[2] + ms
+    return out
+
+
+def move_error(before, after, ref_after) -> float:
+    """The largest share (L2) by which a trained tensor's move in the grid
+    step differs from one process's move from the same ``before``; frozen
+    tensors must not move on either side."""
+    import torch
+
+    from trcnn_torch.train.optim import is_frozen
+
+    worst = 0.0
+    for k, ref in ref_after.items():
+        if is_frozen(k):
+            if not (torch.equal(after[k], before[k]) and torch.equal(ref, before[k])):
+                raise AssertionError(f"frozen {k} moved")
+            continue
+        want = ref - before[k]
+        worst = max(worst, float((after[k] - before[k] - want).norm() / want.norm()))
+    return worst
+
+
+def grid_job(job, dev, rank, world, group):
+    """A rank of the 2 x 2 grid.  (a) ``len(batches)`` steps (compute dtype
+    ``job["dtype"]``, float32 master weights) on its data index's rows of the global batches of 8 from seeded weights (the
+    other ranks start from other ones, which the state's broadcast
+    overwrites), each step's collectives timed by axis; before each, every
+    rank gathers the whole state and rank 0 takes one process's step from
+    it on the whole batch (:func:`reference_step`), and after it rank 0
+    holds the grid's moves against the one process's
+    (:func:`move_error`).  Its launches and the replay of its kernel calls
+    (the first of each input shape, every K1 call) through the plain
+    versions.  (b) Given a ``ckpt_dir``: the whole state after (a) written
+    by a 2 x 2 Trainer there, restored by a 1 x 4 Trainer (gathered back
+    whole on every rank) and by a Trainer at world size 1 on rank 0:
+    bit-equal or not, and the 1 x 4 fc6 block's shape."""
+    import dataclasses
+
+    import torch
+
+    from trcnn_torch import _build, parallel
+    from trcnn_torch.parallel.tensor import load_whole_, param_shardings, whole_state
+    from trcnn_torch.train import trainer as trainer_mod
+    from trcnn_torch.train.step import TrainState
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = config_from_dict(job["cfg"])
+    n_data, n_model = job["grid"]
+    dtype = getattr(torch, job["dtype"])
+    mesh = parallel.make_mesh(n_data, n_model)
+    model = dp_model(cfg, dev, dtype)
+    if rank:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+    state = TrainState.create(model, mesh)
+    kinds = param_shardings(model)
+    replicated = {k for k, v in kinds.items() if v is None}
+    res = {"mesh": (mesh.data_index, mesh.model_index),
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "sharded": {k: tuple(p.shape) for k, p in model.named_parameters() if kinds[k]}}
+    ref = None
+    if rank == 0:
+        ref = TrainState.create(dp_model(cfg, dev, dtype), parallel.Mesh())
+        res["whole_param_bytes"] = sum(p.numel() * p.element_size()
+                                       for p in ref.model.parameters())
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in torch.load(job["batches"])]
+
+    def gathered():
+        """The whole state, copied (the state_dict holds the live tensors)."""
+        return ({k: v.clone() for k, v in d.items()}
+                for d in whole_state(state.model, state.optimizer.momentum))
+
+    whole, momentum = gathered()
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    refs, steps, comms, moves, captured = [], [], [], [], {}
+    launches = dict.fromkeys(_build.launch_counts, 0)
+    for batch in batches:
+        if rank == 0:
+            ref.model.load_state_dict(whole)
+            ref.optimizer.load_state_dict({"momentum": momentum})
+            ref.step = state.step
+            refs.append(reference_step(ref, batch, n_data, keep_params=True))
+        sync()
+        before = dict(_build.launch_counts)
+        with recording(captured, first_of_shape=True), collectives([], mesh) as records:
+            steps += run_steps(state, [rows(batch, mesh.data_index, n_data)])
+        sync()
+        for k in launches:
+            launches[k] += _build.launch_counts[k] - before[k]
+        steps[-1]["replicated"] = digest(state.model, names=replicated)
+        comms.append(by_axis(records))
+        after, momentum = gathered()
+        if rank == 0:
+            moves.append(move_error(whole, after, refs[-1].pop("params")))
+        whole = after
+    res.update(steps=steps, refs=refs, comms=comms, moves=moves, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+    # the last step's collectives again, all ranks in step (a barrier first),
+    # one axis at a time: their cost without the wait for the slowest rank
+    alone = {}
+    for axis in ("data", "model"):
+        bufs = [torch.zeros(nb // 4, device=dev) for a, nb, _ in records if a == axis]
+        times = []
+        for _ in range(3):
+            parallel.barrier(group)
+            sync()
+            t0 = time.perf_counter()
+            for b in bufs:
+                torch.distributed.all_reduce(b, group=getattr(mesh, axis))
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        alone[axis] = statistics.median(times)
+    res["alone_ms"] = alone
+    res["replay"] = replay(captured, f"grid rank {rank}'s {job['dtype']} steps")
+    del captured, state, ref, model, batches
+    if not job.get("ckpt_dir"):
+        return res
+
+    d = job["ckpt_dir"]
+    tcfg = trainer_mod.TrainConfig(checkpoint_every=0, checkpoint_dir=d)
+    trainer_mod.make_mesh = lambda: parallel.make_mesh(n_data, n_model)
+    t = trainer_mod.Trainer(dp_model(cfg, dev, torch.float32), cfg, tcfg, device=dev)
+    load_whole_(t.state.model, t.state.optimizer, whole, momentum)
+    t.state.step = len(steps)
+    t.save()
+    del t
+    restored = {}
+    for what, grid in (("1 x 4", (1, world)), ("world 1", None)):
+        if grid is None and rank:
+            continue
+        if grid is not None:
+            trainer_mod.make_mesh = lambda: parallel.make_mesh(*grid)
+        t = trainer_mod.Trainer(dp_model(cfg, dev, torch.float32), cfg, dataclasses.replace(
+            tcfg, use_mesh=grid is not None), device=dev)
+        sd, mom = whole_state(t.state.model, t.state.optimizer.momentum)
+        restored[what] = {
+            "step": t.state.step, "mesh": t.mesh.shape,
+            "fc6": tuple(t.state.model.head.fc6.weight.shape),
+            "equal": all(torch.equal(sd[k], v) for k, v in whole.items())
+            and all(torch.equal(mom[k], v) for k, v in momentum.items())}
+        del t, sd, mom
+    res["restored"] = restored
+    return res
+
+
+def phase_grid(dev, by_path, tmp, dtype: str = "float32", n_steps: int = 3):
+    """fc6/fc7 tensor parallelism at full width: four gloo ranks on a
+    2 x 2 (data, model) grid share the card, VGG-16 VOC in ``dtype`` with
+    float32 master weights (fc6 25088 x 4096 cut into two blocks of rows,
+    fc7 into two of columns), global batch 8 (4 images per data index),
+    ``n_steps`` steps, each against one process's step from the same state
+    (:func:`grid_job`): the sampled sets equal, losses within DP_RTOL and
+    grad_norm within DP_NORM_RTOL (bfloat16: GRID_BF16_RTOL), each trained
+    tensor's move within GRID_MOVE_RTOL of the one process's, the replicas
+    of one model index bit-identical and every replicated parameter
+    bit-identical on the four ranks; each rank launching exactly the path's
+    kernels and replaying its kernel calls through the plain versions.
+    Prints each rank's parameter bytes, the collectives' calls, bytes and
+    time per step by axis, peak memory.  In float32, then the restore: the
+    state written by the 2 x 2 Trainer restored bit-equal at 1 x 4 (fc6 in
+    four blocks) and at world size 1."""
+    import os
+
+    import torch
+
+    cfg = dp_config("voc", "vgg16")
+    job = {"name": f"vgg16_grid_train_{dtype}", "kind": "grid", "cfg": cfg, "dtype": dtype,
+           "device": dev.type, "world": GRID[0] * GRID[1], "grid": list(GRID),
+           "batches": os.path.join(tmp, f"grid_batches_{dtype}.pt")}
+    if dtype == "float32":
+        job["ckpt_dir"] = os.path.join(tmp, "grid_ckpt")
+    rtol = DP_RTOL if dtype == "float32" else GRID_BF16_RTOL
+    torch.save(dp_global_batches(cfg, False, n_steps), job["batches"])
+    t0 = time.perf_counter()
+    ranks = launch_ranks(job, tmp)
+    secs = time.perf_counter() - t0
+    what = f"tensor parallel VGG-16 VOC train, {dtype}, a {GRID[0]} x {GRID[1]} grid of gloo ranks"
+    if [r["mesh"] for r in ranks] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        raise AssertionError(f"{what}: ranks at {[r['mesh'] for r in ranks]}")
+    whole = cfg.head_hidden
+    want = {"head.fc6.weight": (whole // GRID[1], 7 * 7 * 512),
+            "head.fc7.weight": (whole, whole // GRID[1])}
+    if any(r["sharded"] != want for r in ranks):
+        raise AssertionError(f"{what}: blocks {[r['sharded'] for r in ranks]}, not {want}")
+    ref = ranks[0]["refs"]
+    for i, want_ in enumerate(ref):
+        got = ranks[0]["steps"][i]["metrics"]
+        phase(f"  step {i + 1}, rank 0 (one process): " + ", ".join(
+            f"{k} {got[k]:.6g} ({v:.6g})" for k, v in want_["metrics"].items()))
+    for i in range(n_steps):
+        s = [r["steps"][i] for r in ranks]
+        if s[1]["digest"] != s[3]["digest"] or len({x["replicated"] for x in s}) != 1:
+            raise AssertionError(f"{what}: the replicas differ after step {i + 1}")
+        for a, b in ((0, 1), (2, 3)):
+            if any(not torch.equal(v, s[b]["sampled"][k]) for k, v in s[a]["sampled"].items()):
+                raise AssertionError(f"{what}: model ranks {a} and {b} sampled differently at "
+                                     f"step {i + 1}")
+        if any(x["metrics"] != s[0]["metrics"] for x in s):
+            raise AssertionError(f"{what}: the ranks report different metrics at step {i + 1}")
+    compare_steps(ref, [ranks[0]["steps"], ranks[2]["steps"]], what, rtol)
+    worst = max(abs(s["metrics"][k] - v) / abs(v) for r, s in zip(ref, ranks[0]["steps"])
+                for k, v in r["metrics"].items() if v)
+    moves = ranks[0]["moves"]
+    if max(moves) > GRID_MOVE_RTOL[dtype]:
+        raise AssertionError(f"{what}: a move {max(moves):.3e} off one process's")
+    path = "vgg16 grid train"
+    for r, res in enumerate(ranks):
+        require_launches(path, res["launches"])
+        by_path[f"{path} {dtype} rank {r}"] = res["launches"]
+    same = [i + 1 for i, r in enumerate(ref) if r["same_trunk"]]
+    phase(f"{what}, {n_steps} steps at a global batch of 8, each vs one process from the "
+          f"same state, {secs:.1f} s: fc6 and fc7 blocks {want}; parameters per rank "
+          f"{ranks[0]['param_bytes'] / 2**20:.1f} MiB against "
+          f"{ranks[0]['whole_param_bytes'] / 2**20:.1f} MiB whole; anchors and sampled RoIs "
+          f"equal, the trunk's bits at 4 images equal those at 8 at steps {same}; losses and "
+          f"grad_norm within {worst:.2e} of one process's (limits {rtol}, grad_norm at least "
+          f"{DP_NORM_RTOL:g}); each trained tensor's move within "
+          f"{', '.join(f'{m:.2e}' for m in moves)} of one process's (L2, limit "
+          f"{GRID_MOVE_RTOL[dtype]:g}); replicas of a model index and every replicated parameter "
+          f"bit-identical on the four ranks, the model ranks of a data index sampling alike")
+    for r, res in enumerate(ranks):
+        per_step = "; ".join(
+            ", ".join(f"{axis} {c[0]} calls {c[1] / 2**20:.1f} MiB {c[2]:.2f} ms"
+                      for axis, c in sorted(step.items()))
+            for step in res["comms"])
+        phase(f"  rank {r} collectives per step (host clock, synchronised; the first of each "
+              f"axis waits for the slowest rank): {per_step}; the last step's again with the "
+              f"ranks in step: data {res['alone_ms']['data']:.2f} ms, model "
+              f"{res['alone_ms']['model']:.2f} ms; step ms "
+              f"{[round(x['ms'], 2) for x in res['steps']]}; peak {res['peak_gib']:.2f} GiB")
+    for res in ranks:
+        phase(f"  {res['replay']}")
+    phase(f"  one process's step ms {[round(x['ms'], 2) for x in ref]}; launches per rank "
+          f"{ranks[0]['launches']}")
+    if dtype != "float32":
+        return
+    restored = [r["restored"] for r in ranks]
+    want_fc6 = (whole // (GRID[0] * GRID[1]), 7 * 7 * 512)
+    if not all(r["1 x 4"]["equal"] and r["1 x 4"]["fc6"] == want_fc6
+               and r["1 x 4"]["step"] == n_steps for r in restored):
+        raise AssertionError(f"grid restore at 1 x 4: {restored}")
+    alone = restored[0]["world 1"]
+    if not (alone["equal"] and alone["step"] == n_steps and alone["mesh"] == {"data": 1,
+                                                                                "model": 1}):
+        raise AssertionError(f"grid restore at world size 1: {alone}")
+    phase(f"grid restore: the state after the grid steps written by the 2 x 2 Trainer "
+          f"({sorted(os.listdir(job['ckpt_dir']))}), restored at 1 x 4 (fc6 blocks {want_fc6} on "
+          f"each of the 4 ranks) and at world size 1: parameters and momentum bit-equal")
+
+
+def phase_dryrun(dev):
+    """``trcnn_torch.entry.dryrun_multichip(4)`` on the card: a 2 x 2 grid
+    of gloo processes, one step of the tiny config, JAX's assertions."""
+    import io
+
+    from trcnn_torch.entry import dryrun_multichip
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        m = dryrun_multichip(4, device=dev.type)
+    secs = time.perf_counter() - t0
+    log_file("dp.txt", f"$ dryrun_multichip(4)\n{text.getvalue()}")
+    phase(f"dryrun_multichip(4) on the card, {secs:.1f} s: "
+          + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+
+
 def main() -> int:
     import torch
 
@@ -3489,6 +3838,7 @@ def main() -> int:
         return 1
     from trcnn_torch import _build
 
+    start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3535,6 +3885,12 @@ def main() -> int:
         phase_dp_train(dev, by_path, tmp, "coco", "resnet101", 2)
         phase_dp_eval(dev, by_path, tmp)
         phase_nccl_cli(dev, by_path, tmp)
+    # tensor parallelism: four gloo ranks on a 2 x 2 grid share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_grid(dev, by_path, tmp)
+        phase_grid(dev, by_path, tmp, "bfloat16", 1)
+    phase_dryrun(dev)
+    phase(f"chip_smoke.py: {time.perf_counter() - start:.1f} s")
     phase(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],

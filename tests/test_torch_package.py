@@ -17,7 +17,7 @@ import torch
 from trcnn import config as jax_config
 from trcnn_torch import _build, config
 from trcnn_torch.cli import add_common_flags, evaluate, forward, train
-from trcnn_torch.entry import entry, train_entry
+from trcnn_torch.entry import dryrun_multichip, entry, train_entry
 from trcnn_torch.eval import Evaluator
 from trcnn_torch.models import make_model
 from trcnn_torch.ops import nms, quant, roi_align, roi_pool, stem
@@ -48,10 +48,10 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, trcnn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(trcnn_torch.__path__, 'trcnn_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 46, names\n"
+        "assert len(names) >= 47, names\n"
         "for n in ('cli.forward', 'cli.evaluate', 'cli.train', 'data.loader', 'eval.evaluator',\n"
         "          'convert_chainer', 'convert_caffemodel', 'weights', 'data.coco',\n"
-        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant', 'parallel'):\n"
+        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant', 'parallel', 'parallel.tensor'):\n"
         "    assert 'trcnn_torch.' + n in names, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'trcnn', 'cv2', 'PIL')]\n"
@@ -71,7 +71,8 @@ def test_config_copy_equals_the_jax_package(make):
 
 
 def test_entry_points_default_to_the_card():
-    for fn in (make_model, entry, train_entry, Trainer.__init__, Evaluator.__init__):
+    for fn in (make_model, entry, train_entry, dryrun_multichip, Trainer.__init__,
+               Evaluator.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     for cli in (forward, evaluate, train):          # --device defaults to the card
         ap = argparse.ArgumentParser()
@@ -81,6 +82,8 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():      # nothing falls back to the CPU
         with pytest.raises((AssertionError, RuntimeError)):
             make_model(_tiny_cfg())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dryrun_multichip(4)
 
 
 def _tiny_cfg():

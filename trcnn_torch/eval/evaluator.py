@@ -18,7 +18,10 @@ image id, are gathered on the host over gloo and merged in rank order,
 each image once (a partial global batch repeats images into other shards),
 so that every rank scores the whole set and returns the same numbers.
 ``eval_images`` counts the set; ``last_local_images`` the images this rank
-detected.
+detected.  Over a (data, model) grid the group is the trainer's data group:
+the model ranks of one data index detect the same images, each with
+fc6/fc7 gathered whole over its model group for the pass (JAX's
+``make_detect_step`` takes the parameters replicated).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from trcnn_torch.data.loader import DetectionLoader, upload
 from trcnn_torch.eval.coco_ap import coco_eval
 from trcnn_torch.eval.voc_ap import build_records, voc_mean_ap
 from trcnn_torch.models.faster_rcnn import FasterRCNN, postprocess
+from trcnn_torch.parallel.tensor import whole_head
 
 METRICS = ("voc07", "voc", "coco")
 
@@ -73,7 +77,8 @@ class Evaluator:
     detection (upload, detect, postprocess, the results back on the host),
     the number of batches per canvas shape, and the number of images this
     rank detected.  ``group``: the process group to shard over (the
-    trainer's); None or a group of one rank evaluates in this process.
+    trainer's data group); None or a group of one rank evaluates in this
+    process.
     """
 
     def __init__(self, model: FasterRCNN, cfg: FasterRCNNConfig, dataset, class_names=None,
@@ -126,7 +131,7 @@ class Evaluator:
         wait = detect = 0.0
         shapes: Dict[tuple, int] = {}
         try:
-            with torch.inference_mode():
+            with whole_head(model), torch.inference_mode():
                 it = iter(self.loader)
                 while True:
                     t0 = time.perf_counter()

@@ -224,7 +224,10 @@ class FasterRCNN(nn.Module):
         candidate has none), and the draws are rows of the global batch's.
         Summed over the ranks, the values and their gradients are what one
         process computes on the whole batch, as under the JAX package's
-        mesh.
+        mesh.  Over a (data, model) grid ``group`` is the data group: the
+        model ranks of one data index draw the same uniforms and masks and
+        count over their data group only (summed over the world, each count
+        would come ``n_model`` times).
 
         Returns the seven-key dict of the JAX package: loss, rpn_cls_loss,
         rpn_bbox_loss, cls_loss, bbox_loss (float32 scalars with autograd)

@@ -1,15 +1,23 @@
-"""Data parallelism over ``torch.distributed`` (port of ``trcnn/parallel``).
+"""Data and tensor parallelism over ``torch.distributed`` (port of
+``trcnn/parallel`` and the mesh of ``trcnn/train/step.py``).
 
 The JAX package scales out over a (data, model) device mesh: batch arrays
-shard over ``data``, parameters replicate, and XLA inserts the gradient
-all-reduce from the shardings.  The port runs one process per device in a
-``torch.distributed`` group:
+shard over ``data``; fc6's and fc7's kernels shard over ``model``
+(Megatron-style, column then row parallel); every other parameter
+replicates; and XLA inserts the collectives from the shardings.  The port
+runs one process per device in a ``torch.distributed`` group:
 
   * :func:`initialize` -- ``init_process_group`` with the arguments of
     ``jax.distributed.initialize``; with none of them, the environment
     (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
     ``LOCAL_RANK``, as ``torchrun`` sets them), the counterpart of the TPU
     metadata auto-detect.  It selects the rank's device and returns it.
+  * :func:`make_mesh` -- the (data, model) grid of the group's processes
+    (:class:`Mesh`): rank r sits at (r // n_model, r % n_model), the
+    row-major reshape of ``make_mesh``'s devices; its ``data`` group joins
+    the ranks of one model index (gradients and metrics are summed there),
+    its ``model`` group the ranks of one data index (fc6/fc7's collectives,
+    :mod:`trcnn_torch.parallel.tensor`).
   * :func:`is_main_process`, :func:`world_size`, :func:`rank`: the process
     that logs and writes checkpoints; 1 and 0 when no group exists.
   * :func:`all_reduce_sum_`, :func:`broadcast_`: in-place collectives over
@@ -19,13 +27,12 @@ all-reduce from the shardings.  The port runs one process per device in a
     gloo group (the evaluator's detections), beside an NCCL group if the
     group is one.
 
-The mesh's ``model`` axis (fc6/fc7 tensor parallelism) is not ported: every
-parameter is replicated.  A ``group`` argument of None means one process
-with no collective at all.
+A ``group`` argument of None means one process with no collective at all.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -33,7 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["initialize", "is_main_process", "world_size", "rank"]
+__all__ = ["initialize", "is_main_process", "world_size", "rank", "Mesh", "make_mesh"]
 
 # gloo groups beside an NCCL group, for gathers of host objects
 _host_groups: Dict[Any, Any] = {}
@@ -115,6 +122,68 @@ def shard_of(group) -> Tuple[int, int]:
     if group is None:
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (data, model) grid of processes, as this rank sees it: the grid's
+    shape, this rank's (data index, model index), and its two groups.
+    ``data``: the ranks of this model index (None for one of them);
+    ``model``: the ranks of this data index (None for one).  The default is
+    one process: 1 x 1, no group."""
+
+    n_data: int = 1
+    n_model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data: Any = None
+    model: Any = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.n_data, "model": self.n_model}
+
+
+def _new_group(ranks: List[int]):
+    """``dist.new_group`` over ``ranks``, with its gloo group beside it
+    when the backend is not gloo; every rank of the world makes every group
+    (a collective call), members or not."""
+    group = dist.new_group(ranks=ranks)
+    host = group if dist.get_backend() == "gloo" else dist.new_group(ranks=ranks, backend="gloo")
+    if dist.get_rank() in ranks:
+        _host_groups[group] = host
+        return group
+    return None
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+    """The (data, model) grid of the default group's processes
+    (``trcnn/train/step.py:51-58``): ``n_data`` defaults to the world size
+    over ``n_model``, and ``n_data * n_model`` must be the world size.
+    With ``n_model`` 1 the data group is the default group itself (data
+    parallelism alone); otherwise every rank makes every data group, then
+    every model group, in that order.  Without a process group only the
+    1 x 1 grid exists."""
+    world = world_size()
+    if n_data is None:
+        n_data = world // n_model
+    if n_data < 1 or n_model < 1 or n_data * n_model != world:
+        raise ValueError(f"a {n_data} x {n_model} (data, model) grid needs {n_data * n_model} "
+                         f"processes; the group has {world}")
+    if not dist.is_initialized():
+        return Mesh()
+    d, m = divmod(rank(), n_model)
+    if n_model == 1:
+        return Mesh(n_data, 1, d, 0, dist.group.WORLD, None)
+    data = model = None
+    for j in range(n_model):
+        if n_data > 1:
+            g = _new_group(list(range(j, world, n_model)))
+            data = g if j == m else data
+    for i in range(n_data):
+        g = _new_group(list(range(i * n_model, (i + 1) * n_model)))
+        model = g if i == d else model
+    return Mesh(n_data, n_model, d, m, data, model)
 
 
 def _by_dtype(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:

@@ -22,6 +22,11 @@ update.  The per-parameter rules:
   gradients count in the global norm and the clip as well;
 - the optional global-norm clip scales every gradient first.
 
+Over a (data, model) grid the parameters, gradients and traces of fc6's
+and fc7's weights are this rank's blocks (``trcnn_torch.parallel.tensor``):
+the update is elementwise, so each rank updates its block, and
+:func:`global_norm` counts each block's squares over the model group.
+
 The schedule is piecewise constant (x ``lr_decay_factor`` from
 ``lr_decay_step`` on) with the optional linear warmup, in float32 like
 optax's.  The update runs in place, on the parameters and on the momentum
@@ -30,12 +35,13 @@ buffers.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from trcnn_torch import parallel
 from trcnn_torch.config import OptimConfig
 from trcnn_torch.models import resnet, vgg16
 
@@ -66,10 +72,20 @@ def learning_rate(cfg: OptimConfig, step: int) -> float:
     return float(lr)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], sharded: Sequence[bool] = (),
+                group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, float32, on the
-    tensors' device (no host sync)."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    tensors' device (no host sync).  ``sharded``: a flag per tensor, True
+    for this rank's block of a tensor sharded over the model group
+    ``group``, whose sum of squares is summed over the group (one
+    collective on every model rank); every other tensor counts once."""
+    squares = torch.stack([t.float().square().sum() for t in tensors])
+    blocks = [i for i, s in enumerate(sharded) if s]
+    if group is not None and blocks:
+        part = squares[blocks]
+        parallel.all_reduce_sum_([part], group)
+        squares[blocks] = part
+    return squares.sum().sqrt()
 
 
 class CaffeSGD:

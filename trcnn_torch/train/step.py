@@ -1,5 +1,5 @@
-"""The train step, on one device or data-parallel over a process group
-(port of ``trcnn/train/step.py``).
+"""The train step, on one device or over a (data, model) grid of
+processes (port of ``trcnn/train/step.py``).
 
 One step: the training forward (``FasterRCNN.losses``), backward, the
 gradients' global norm, and the Caffe-order update, all on the device the
@@ -11,36 +11,45 @@ generators' numbers are not JAX's; the tests hand in JAX's draws.  The
 three stages run under ``torch.profiler`` spans named in ``STAGES``, which
 record nothing when no profiler runs.
 
-Data parallelism is the JAX step's ``data`` mesh axis over a
-``torch.distributed`` group (:mod:`trcnn_torch.parallel`): every rank holds
-the whole model (:meth:`TrainState.create` broadcasts rank 0's parameters,
-the counterpart of ``create_sharded``), takes its own equal shard of the
-global batch (:func:`device_batch`), and computes its share of the global
-batch's losses (``FasterRCNN.losses``); after backward one all-reduce sums
-the gradients, flattened into one buffer, before the global norm, the clip
-and the update, so that every replica applies the same update to the same
-bits, and the metrics are summed to the global batch's on every rank.  The
-reduction is written out rather than left to DDP's hooks: VGG-16's conv1
-block runs in the forward-only kernel K3 and never has a gradient, which
-DDP would take for an error, and one sum after backward is what XLA
-inserts from the JAX mesh's shardings.  ``make_mesh`` and
-``batch_sharding`` have no counterpart: the group is the mesh's ``data``
-axis, and a rank's rows of the batch are its loader's shard.  The mesh's
-``model`` axis (``param_shardings``: fc6/fc7 tensor parallelism) is not
-ported; every parameter is replicated.
+The JAX step's (data, model) mesh is a grid of ``torch.distributed``
+processes (:func:`trcnn_torch.parallel.make_mesh`).  Over ``data`` every
+rank takes its own equal shard of the global batch (:func:`device_batch`,
+its loader's ``shard_id`` is its data index) and computes its share of the
+global batch's losses (``FasterRCNN.losses`` over the data group).  Over
+``model`` fc6 and fc7 are sharded Megatron-style
+(:mod:`trcnn_torch.parallel.tensor`, the head's collectives); every other
+parameter is replicated.  :meth:`TrainState.create` (the counterpart of
+``create_sharded``) broadcasts rank 0's parameters over the world, then
+keeps this rank's fc6/fc7 blocks.  After backward (which has summed the
+head input's and fc6 bias's gradients over the model group) one
+all-reduce over the data group sums the gradients, flattened into one
+buffer, and one broadcast over the model group hands its first rank's
+replicated gradients to the others (on the card two ranks computing the
+same gradient differ in the last bits: the backward adds with atomics),
+before the global norm (each fc6/fc7 block's squares summed over the
+model group), the clip and the update, so that the replicas apply the
+same update to the same bits; the metrics are summed to the global
+batch's over the data group.  The data-axis reduction is written out
+rather than left to DDP's hooks: VGG-16's conv1 block runs in the
+forward-only kernel K3 and never has a gradient, which DDP would take for
+an error, and one sum after backward is what XLA inserts from the JAX
+mesh's shardings.  ``batch_sharding`` has no counterpart: a rank's rows
+of the batch are its loader's shard.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from trcnn_torch import parallel
 from trcnn_torch.data.loader import Batch, upload
 from trcnn_torch.models.faster_rcnn import FasterRCNN
+from trcnn_torch.parallel.tensor import param_shardings, shard_model_
 from trcnn_torch.train.optim import CaffeSGD, global_norm
 
 BATCH_KEYS = ("images", "im_info", "gt_boxes", "gt_labels", "gt_valid")
@@ -50,23 +59,32 @@ STAGES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (float32 master parameters), its optimizer, the number of
-    steps taken and the data-parallel group (None: one process).
-    :func:`train_step` updates the first three in place."""
+    """The model (float32 master parameters; over a grid, this rank's
+    fc6/fc7 blocks), its optimizer, the number of steps taken and the
+    (data, model) grid (1 x 1: one process).  :func:`train_step` updates
+    the first three in place."""
 
     model: FasterRCNN
     optimizer: CaffeSGD
     step: int = 0
-    group: Any = None
+    mesh: parallel.Mesh = parallel.Mesh()
+
+    @property
+    def group(self):
+        """The data-parallel group (None: no other data rank)."""
+        return self.mesh.data
 
     @classmethod
-    def create(cls, model: FasterRCNN, group=None) -> "TrainState":
-        """The state of a fresh run; with ``group``, every rank's parameters
-        and buffers are overwritten with the first rank's, so that the
-        replicas start from the same bits."""
+    def create(cls, model: FasterRCNN, mesh: parallel.Mesh = parallel.Mesh()) -> "TrainState":
+        """The state of a fresh run on ``mesh``: every rank's parameters and
+        buffers are overwritten with rank 0's, so that the replicas start
+        from the same bits, then fc6/fc7 are cut to this rank's blocks (a
+        width the model axis does not divide raises)."""
         with torch.no_grad():
-            parallel.broadcast_(list(model.parameters()) + list(model.buffers()), group)
-        return cls(model, CaffeSGD(model, model.cfg.optim, model.cfg.backbone), group=group)
+            world = None if mesh.data is None and mesh.model is None else dist.group.WORLD
+            parallel.broadcast_(list(model.parameters()) + list(model.buffers()), world)
+        shard_model_(model, mesh)
+        return cls(model, CaffeSGD(model, model.cfg.optim, model.cfg.backbone), mesh=mesh)
 
 
 def device_batch(batch: Union[Batch, Mapping[str, torch.Tensor]], device: torch.device
@@ -76,7 +94,8 @@ def device_batch(batch: Union[Batch, Mapping[str, torch.Tensor]], device: torch.
     through pinned buffers, asynchronously.  Data-parallel, each process
     uploads only its own shard (its loader's ``shard_id``), as
     ``jax.make_array_from_process_local_data`` lifts each process's rows
-    into the global batch."""
+    into the global batch; over a grid the shard is the data index's, the
+    same on every model rank of it."""
     if isinstance(batch, Batch):
         return {k: upload(getattr(batch, k), device) for k in BATCH_KEYS}
     out = {}
@@ -100,8 +119,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
     """One optimizer step, in place on ``state``.
 
     ``batch``: images (B, H, W, 3), im_info (B, 3), gt_boxes (B, G, 4),
-    gt_labels (B, G), gt_valid (B, G), on the model's device: this rank's
-    shard when ``state.group`` is set.  ``uniforms`` and ``proposals``
+    gt_labels (B, G), gt_valid (B, G), on the model's device: this data
+    index's shard over a grid.  ``uniforms`` and ``proposals``
     replace the generator's sampling draws and the proposal layer's output
     for the same images (tests).  Returns the losses dict plus
     ``grad_norm`` (the global norm over every gradient, the frozen ones
@@ -117,10 +136,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
     with record_function(STAGES[1]):
         model.zero_grad(set_to_none=True)
         out["loss"].backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        parallel.all_reduce_sum_(grads, state.group)
+        kinds = param_shardings(model)
+        named = [(k, p.grad) for k, p in model.named_parameters() if p.grad is not None]
+        grads = [g for _, g in named]
+        parallel.all_reduce_sum_(grads, state.mesh.data)
+        # the model ranks of a data index compute the replicated gradients
+        # alike, but on the card the backward's atomics part their last bits
+        parallel.broadcast_([g for k, g in named if kinds[k] is None], state.mesh.model)
     with record_function(STAGES[2]):
-        norm = global_norm(grads)
+        norm = global_norm(grads, [kinds[k] is not None for k, _ in named], state.mesh.model)
         state.optimizer.step(state.step, norm)
     state.step += 1
     metrics = {k: v.detach() for k, v in out.items()}

@@ -17,11 +17,15 @@ after the last step.
 
 Data parallel (``TrainConfig.use_mesh``, the default, once
 :func:`trcnn_torch.parallel.initialize` has made a process group): the step
-runs over the group (:mod:`trcnn_torch.train.step`), each process feeding
-its own loader shard, and ``imgs_per_sec`` counts the global batch.  Only
-the first rank logs and writes checkpoints; the others wait for the file
-at a barrier.  Every rank restores onto its own device, and a checkpoint
-holds the replicas' one state, so a run resumes at any world size.
+runs over the grid of the module-level :func:`make_mesh` (every rank on
+``data`` unless it is replaced, as the JAX trainer's is in its tests),
+each process feeding its data index's loader shard, and ``imgs_per_sec``
+counts the global batch.  Only the first rank logs and writes
+checkpoints; the others wait for the file at a barrier.  A checkpoint
+holds the one-process state (fc6/fc7 and their traces gathered whole over
+each model group by every rank first), and every rank restores it onto
+its own device and slices it for its grid, so a run resumes on any grid
+and at any world size.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import torch.distributed as dist
 from trcnn_torch import parallel
 from trcnn_torch.config import FasterRCNNConfig
 from trcnn_torch.models.faster_rcnn import FasterRCNN
+from trcnn_torch.parallel import make_mesh
+from trcnn_torch.parallel.tensor import load_whole_, whole_state
 from trcnn_torch.train.step import TrainState, device_batch, train_step
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
@@ -78,9 +84,10 @@ class Trainer:
     the evaluator hook.
 
     ``model`` moves to ``device``: the card unless the caller asks for the
-    CPU (data parallel: the rank's device, from ``initialize``).  ``group``
-    is the data-parallel group: the default group when ``tcfg.use_mesh``
-    and one exists, else None (one process)."""
+    CPU (data parallel: the rank's device, from ``initialize``).  ``mesh``
+    is the (data, model) grid: :func:`make_mesh`'s when ``tcfg.use_mesh``
+    and a process group exists, else 1 x 1 (one process); ``group`` its
+    data group."""
 
     def __init__(self, model: FasterRCNN, cfg: FasterRCNNConfig,
                  tcfg: TrainConfig = TrainConfig(), device="cuda",
@@ -89,8 +96,10 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.evaluator = evaluator
-        self.group = dist.group.WORLD if tcfg.use_mesh and dist.is_initialized() else None
-        self.state = TrainState.create(model.to(self.device), self.group)
+        use = tcfg.use_mesh and dist.is_initialized()
+        self.mesh = make_mesh() if use else parallel.Mesh()
+        self.group = self.mesh.data
+        self.state = TrainState.create(model.to(self.device), self.mesh)
         if tcfg.checkpoint_dir:
             os.makedirs(tcfg.checkpoint_dir, exist_ok=True)
             self.maybe_restore()
@@ -105,14 +114,15 @@ class Trainer:
         return parallel.is_main_process()
 
     def save(self) -> None:
-        """Write ``ckpt_<step>.pt`` (the first rank; the others wait for it)."""
+        """Write ``ckpt_<step>.pt`` (the first rank, after every rank has
+        gathered the whole state; the others wait for it)."""
         if not self.tcfg.checkpoint_dir:
             return
         st = self.state
         path = os.path.join(self.tcfg.checkpoint_dir, f"ckpt_{st.step:08d}.pt")
+        model, momentum = whole_state(st.model, st.optimizer.momentum)
         if self._main() and not os.path.exists(path):   # else this step is saved already
-            torch.save({"model": st.model.state_dict(),
-                        "optimizer": st.optimizer.state_dict(), "step": st.step},
+            torch.save({"model": model, "optimizer": {"momentum": momentum}, "step": st.step},
                        path + ".tmp")
             os.replace(path + ".tmp", path)
             for _, old in checkpoints(self.tcfg.checkpoint_dir)[:-self.tcfg.keep_checkpoints]:
@@ -120,14 +130,15 @@ class Trainer:
         parallel.barrier(dist.group.WORLD if dist.is_initialized() else None)
 
     def maybe_restore(self) -> bool:
-        """Resume from the newest checkpoint, if there is one."""
+        """Resume from the newest checkpoint, if there is one, sliced for
+        this rank's grid."""
         ckpts = checkpoints(self.tcfg.checkpoint_dir)
         if not ckpts:
             return False
         step, path = ckpts[-1]
         ck = torch.load(path, map_location=self.device)
-        self.state.model.load_state_dict(ck["model"])
-        self.state.optimizer.load_state_dict(ck["optimizer"])
+        load_whole_(self.state.model, self.state.optimizer, ck["model"],
+                    ck["optimizer"]["momentum"])
         self.state.step = ck["step"]
         if self._main():
             print(f"[trainer] resumed from checkpoint at step {step}", flush=True)
@@ -158,7 +169,7 @@ class Trainer:
             batch = window.pop(0)
             enqueue()
             metrics = train_step(st, batch, tcfg.seed)
-            imgs += batch["images"].shape[0] * parallel.shard_of(self.group)[1]
+            imgs += batch["images"].shape[0] * self.mesh.n_data
             if (st.step % tcfg.log_every == 0 or st.step == total) and self._main():
                 dt = time.time() - t0
                 print(json.dumps({"step": st.step, "imgs_per_sec": round(imgs / max(dt, 1e-9), 2),
