@@ -45,6 +45,7 @@ from trcnn_torch.convert import flax_to_state_dict
 from trcnn_torch.entry import dryrun_multichip, tiny_config
 from trcnn_torch.models import make_model
 from trcnn_torch.parallel import tensor
+from trcnn_torch.train.step import train_step
 from trcnn_torch.train.trainer import TrainConfig, Trainer
 from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
 
@@ -56,7 +57,8 @@ SHARDED = {"head.fc6.weight": 0, "head.fc7.weight": 1}   # torch's split dim
 def grid(tmp_path_factory):
     """Every multi-process job of this file: four ranks on a 2 x 2 grid and
     one process at world size 1, then a 2 x 2 grid on JAX's inputs, and
-    JAX's 2 x 2 mesh step meanwhile.  Returns the results."""
+    JAX's 2 x 2 mesh step meanwhile.  Yields the results and removes the
+    files after the module's tests."""
     out = str(tmp_path_factory.mktemp("grid"))
     vgg = _port_cfg(_tiny_cfg())
     r101 = _port_cfg(_r101_cfg().replace(proposal_targets=ProposalTargetConfig(rois_per_image=8)))
@@ -113,16 +115,8 @@ def grid(tmp_path_factory):
     res = {name: [_load(out, name, r) for r in range(WORLD)]
            for name in ("vgg", "r101", "eval", "head", "trainer", "xtrain")}
     res.update({f"{name}_alone": _load(out, name, "alone") for name in ("vgg", "r101", "eval")})
-    return dict(res=res, out=out, cfg=vgg, jax=jax_res)
-
-
-def _whole(ranks):
-    """The whole parameters from the blocks of data index 0's model ranks
-    (ranks 0 and 1)."""
-    got = dict(ranks[0]["params"])
-    for k, dim in SHARDED.items():
-        got[k] = torch.cat([r["params"][k] for r in ranks[:N_MODEL]], dim)
-    return got
+    yield dict(res=res, out=out, cfg=vgg, jax=jax_res)
+    shutil.rmtree(out, ignore_errors=True)      # about 1 GB of states and checkpoints
 
 
 def _check_grid_steps(ranks, alone):
@@ -160,19 +154,19 @@ def test_grid_two_steps_equal_world_one(grid):
     _check_grid_steps([r["steps"] for r in ranks], alone["steps"])
     assert alone["steps"][0]["metrics"]["num_fg_rois"] > 0
     want = alone["params"]
+    assert len({r["replicated"] for r in ranks}) == 1
+    assert sorted(ranks[0]["blocks"]) == sorted(SHARDED)
     for k, v in want.items():
         if k in SHARDED:
             dim = SHARDED[k]
             w = v.shape[dim] // N_MODEL
             for r in ranks:
-                block = r["params"][k]
+                block = r["blocks"][k]
                 assert block.shape[dim] == w and block.shape[1 - dim] == v.shape[1 - dim], k
                 ref = v.narrow(dim, r["mesh"][1] * w, w)
                 assert float((block - ref).abs().max()) <= RTOL * float(v.abs().max()), k
-        else:
-            for r in ranks[1:]:
-                assert torch.equal(r["params"][k], ranks[0]["params"][k]), k
-            assert float((ranks[0]["params"][k] - v).abs().max()) <= RTOL * float(v.abs().max()), k
+                assert torch.equal(block, ranks[0]["params"][k].narrow(dim, r["mesh"][1] * w, w))
+        assert float((ranks[0]["params"][k] - v).abs().max()) <= RTOL * float(v.abs().max()), k
 
 
 def test_grid_step_matches_jax_mesh_step(grid):
@@ -189,18 +183,20 @@ def test_grid_step_matches_jax_mesh_step(grid):
     for k in LOSSES:
         assert _rel(got["metrics"][k], want[k]) <= 1e-4, (k, got["metrics"][k], want[k])
     assert _rel(got["metrics"]["grad_norm"], want["grad_norm"]) <= 1e-3
-    params = _whole(ranks)
+    assert len({r["replicated"] for r in ranks}) == 1
+    params = ranks[0]["params"]
     for k, w in grid["jax"]["params"].items():
         assert float((params[k] - torch.from_numpy(w)).abs().max()) <= 1e-5 * np.abs(w).max(), k
 
 
-def test_checkpoint_from_a_grid_resumes_on_another_grid_and_alone(grid, tmp_path):
-    """The 2 x 2 trainer wrote ckpt_1 and ckpt_2 in the one-process format (whole
-    fc6/fc7 and traces: every rank gathered, rank 0 wrote); a Trainer on a
-    1 x 4 grid over the same directory restores ckpt_2 bit-equal
+def test_checkpoint_from_a_grid_resumes_on_another_grid_and_alone(grid):
+    """The 2 x 2 trainer wrote ckpt_1 and ckpt_2 in the one-process format
+    (whole fc6/fc7 and traces: every rank gathered, rank 0 wrote); a Trainer
+    on a 1 x 4 grid over the same directory restores ckpt_2 bit-equal
     (parameters and momentum gathered back whole on every rank), its fc6
     cut in four, and one more step moves fc6.  A Trainer at world size 1
-    on ckpt_2 alone restores it bit-equal too and one more step moves it."""
+    on the directory restores ckpt_2 bit-equal too and one more step moves
+    it (both steps through ``train_step``: no checkpoint is written)."""
     from chip_smoke import digest
 
     ranks = grid["res"]["trainer"]
@@ -213,20 +209,19 @@ def test_checkpoint_from_a_grid_resumes_on_another_grid_and_alone(grid, tmp_path
         assert res["equal"] and res["fc6"] == (cfg.head_hidden // WORLD, 7 * 7 * 512)
         assert res["moved"] > 0 and res["step_after"] == 3
     names = sorted(os.listdir(f"{grid['out']}/ckpt"))
-    assert names == [f"ckpt_0000000{i}.pt" for i in (1, 2, 3)], names
+    assert names == ["ckpt_00000001.pt", "ckpt_00000002.pt"], names
     ck = torch.load(f"{grid['out']}/ckpt/ckpt_00000002.pt")
     assert set(ck) == {"model", "optimizer", "step"} and set(ck["optimizer"]) == {"momentum"}
     assert ck["model"]["head.fc6.weight"].shape == (cfg.head_hidden, 7 * 7 * 512)
-    shutil.copy(f"{grid['out']}/ckpt/ckpt_00000002.pt", tmp_path)
     t = Trainer(make_model(cfg, device="cpu"), cfg, TrainConfig(
-        total_iters=3, checkpoint_every=0, checkpoint_dir=str(tmp_path)), device="cpu")
+        total_iters=3, checkpoint_every=0, checkpoint_dir=f"{grid['out']}/ckpt"), device="cpu")
     assert t.state.step == 2 and t.mesh.shape == {"data": 1, "model": 1}
     for k, v in t.state.model.state_dict().items():
         assert torch.equal(v, ck["model"][k]), k
     for k, v in t.state.optimizer.momentum.items():
         assert torch.equal(v, ck["optimizer"]["momentum"][k]), k
     before = digest(t.state.model)
-    t.fit(torch.load(f"{grid['out']}/vgg_batches.pt")[:1])
+    train_step(t.state, torch.load(f"{grid['out']}/vgg_batches.pt")[0])
     assert t.state.step == 3 and digest(t.state.model) != before
     assert not torch.equal(t.state.model.head.fc6.weight, ck["model"]["head.fc6.weight"])
 

@@ -26,16 +26,17 @@ Jobs (``kind``):
   data index's rows of the global batches in ``batches`` (and of the global
   draws in ``uniforms``, the global proposals in ``proposals``, when
   given); per step the metrics, the sampled sets and the replica's digest,
-  and with ``keep_params`` the last parameters (this rank's fc6/fc7
-  blocks); ``momentum``: the optimizer's momentum buffers to start from;
-  the rank's (data index, model index);
+  and with ``keep_params`` the last parameters (on the first rank, put
+  whole; on every rank its fc6/fc7 blocks and a digest of the replicated
+  parameters); ``momentum``: the optimizer's momentum buffers to start
+  from; the rank's (data index, model index);
 - "trainer": ``Trainer.fit`` on this data index's rows of ``batches``, one
   checkpoint a step into ``ckpt_dir``, one ``fit`` call per batch; the
   replica's digest after each; with ``resume`` (n_data, n_model), a second
   Trainer on that grid over the same directory: whether its restored state,
   gathered whole, equals the newest checkpoint bit for bit, its fc6 block's
-  shape, and how far one more step on ``batches``' first moves fc6 (its
-  checkpoint is written after the first Trainer's);
+  shape, and how far one more step (``train_step`` on its state, no
+  checkpoint) on ``batches``' first moves fc6;
 - "head": the VGG-16 head of ``cfg`` from a seeded init, sharded over the
   grid, forward and backward on seeded crops, with fc6's bias gradient
   summed over the model group and without that sum; its outputs and
@@ -61,7 +62,7 @@ from chip_smoke import config_from_dict, digest, rows, run_steps  # noqa: E402
 from trcnn_torch import parallel  # noqa: E402
 from trcnn_torch.models import make_model  # noqa: E402
 from trcnn_torch.parallel import tensor  # noqa: E402
-from trcnn_torch.train.step import TrainState  # noqa: E402
+from trcnn_torch.train.step import TrainState, train_step  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=90)
 
@@ -130,7 +131,13 @@ def run_job(job: dict, rank: int, world: int, mesh):
         res = {"steps": run_steps(state, load["batches"], load["uniforms"], load["proposals"]),
                "mesh": (mesh.data_index, mesh.model_index)}
         if job.get("keep_params"):
-            res["params"] = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+            kinds = tensor.param_shardings(state.model)
+            whole = tensor.whole_state(state.model, state.optimizer.momentum)[0]
+            res["blocks"] = {k: v.detach().clone() for k, v in state.model.state_dict().items()
+                             if kinds.get(k)}
+            res["replicated"] = digest(state.model, names={k for k, v in kinds.items() if not v})
+            if rank == 0:
+                res["params"] = {k: v.detach().clone() for k, v in whole.items()}
         return res
     if kind == "trainer":
         from trcnn_torch.train import trainer as trainer_mod
@@ -161,7 +168,7 @@ def run_job(job: dict, rank: int, world: int, mesh):
                 "fc6": tuple(model.head.fc6.weight.shape),
                 "equal": all(torch.equal(sd[k], v) for k, v in ck["model"].items())
                 and all(torch.equal(mom[k], v) for k, v in ck["optimizer"]["momentum"].items())}
-            again.fit(rows(torch.load(job["batches"]), 0, n_data)[:1])
+            train_step(again.state, rows(torch.load(job["batches"]), 0, n_data)[0])
             fc6 = tensor.whole_state(model, momentum)[0]["head.fc6.weight"]
             res["resumed"]["moved"] = float((fc6 - ck["model"]["head.fc6.weight"]).abs().sum())
             res["resumed"]["step_after"] = again.state.step
