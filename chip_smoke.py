@@ -108,7 +108,18 @@ Phases, one line each, any failure raises and exits non-zero:
     kernel calls replayed through the plain versions; the state written by
     the grid's Trainer restored bit-equal at 1 x 4 and at world size 1; one
     bfloat16 grid step against one process's (``GRID_BF16_RTOL``); then
-    ``trcnn_torch.entry.dryrun_multichip(4)`` on the card.
+    ``trcnn_torch.entry.dryrun_multichip(4)`` on the card.  The grid's
+    ``Trainer.save`` gathers fc6/fc7 to rank 0 alone: each rank's device
+    memory rise over it, ranks 1-3 below their own blocks and momentum.
+13. the JAX package's last modules, after the data path: the convert CLI
+    (to_flax, to_chainer, to_flax bit-equal on the full-width npz) and
+    ``download --file``; the parity CLI on a VOC tree of 16 synthetic
+    images (both buckets) from that npz: capture 8 goldens, compare with
+    zero deltas, the failing gate's exit 2, each a counted path (its first
+    run's kernel calls replayed); ``train_steps`` (K=4 at batch 8, a
+    counted path, then in turns with 4 sequential steps); and
+    ``preprocess_device`` on a 1024x1024 raw buffer (375x500 and 500x375
+    images, card against CPU), its canvases through the detect path.
 
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
@@ -176,7 +187,14 @@ REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "vgg16 train CLI nccl": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
             "vgg16 train CLI without group": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
             # tensor parallel: each rank's launches
-            "vgg16 grid train": ("nms", "roi_pool", "roi_pool_bwd", "stem")}
+            "vgg16 grid train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            # the parity CLI (capture, compare, the failing gate), K steps per
+            # call, preprocessing on the card
+            "vgg16 parity run 1": ("nms", "roi_pool", "stem"),
+            "vgg16 parity run 2": ("nms", "roi_pool", "stem"),
+            "vgg16 parity run 3": ("nms", "roi_pool", "stem"),
+            "vgg16 train_steps": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
+            "vgg16 preprocess_device detect": ("nms", "roi_pool", "stem")}
 BACKBONES = ("vgg16", "resnet101")
 NAMES = {"vgg16": "VGG-16", "resnet101": "ResNet-101-C4"}
 STEM_F32_RTOL = 1e-4
@@ -1740,7 +1758,9 @@ def phase_train_cli(dev, by_path, npz, sd, tmp):
     trained parameters moved, frozen ones not; the checkpoint read back by
     the evaluate CLI's --checkpoint_dir.  The run records the first call of
     each kernel input shape (K4 on every map its batches give it) and
-    replays it through the plain version."""
+    replays it through the plain version.  With ``--out`` the CLI makes a
+    metric writer under ``<out>/tb`` when tensorboard imports: printed
+    either way."""
     import os
 
     import torch
@@ -1767,9 +1787,18 @@ def phase_train_cli(dev, by_path, npz, sd, tmp):
         moved = not torch.equal(p.detach().cpu(), sd[k])
         if moved == is_frozen(k):
             raise AssertionError(f"train CLI: {k} {'moved' if moved else 'did not move'}")
+    writer = trainer.tcfg.metric_writer
+    if writer is None:
+        log = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                           "cli.txt")
+        said = [x.strip() for x in open(log) if "metric writer" in x]
+        writer = f"none made ({said[-1] if said else 'the CLI said nothing'})"
+    else:
+        writer = f"{type(writer).__name__}, files {sorted(os.listdir(os.path.join(out, 'tb')))}"
     phase(f"train CLI: 4 steps at batch 8 + the eval hook ({nb} batches) in {secs:.1f} s "
           f"(kernel inputs recorded); "
-          f"launches {launches}; frozen parameters unchanged, trained ones moved")
+          f"launches {launches}; frozen parameters unchanged, trained ones moved; metric "
+          f"writer: {writer}")
     res = eval_path("vgg16 evaluate checkpoint", ["--dataset", "synthetic", "--checkpoint_dir", out,
                                                   "--limit", "16", "--device", "cuda"], by_path)
     trained = trainer.state.model.state_dict()
@@ -1809,6 +1838,258 @@ def phase_forward_cli(dev, by_path, npz, tmp):
     if rc != 0 or launches["nms"] != 4 or read_image(out_fn).shape != img.shape:
         raise AssertionError(f"forward CLI: rc {rc}, launches {launches}, output {lines[-1:]}")
     phase(f"forward CLI ({lib}): {lines[0]}; {lines[1]}; wrote {os.path.basename(out_fn)}")
+
+
+# ---------------------------------------------------------------- the last modules
+
+
+def phase_convert(npz, tmp):
+    """The convert CLI on the full-width VGG-16 npz of :func:`phase_weights`:
+    to_flax, to_chainer, to_flax again, the two flax npz bit-equal key for
+    key; ``download --file`` on the npz gives the first flax npz.  Host
+    work (numpy), no kernel."""
+    import os
+
+    from trcnn_torch.cli import convert, download
+
+    flat, back, again, dl = (os.path.join(tmp, f"{n}.npz")
+                             for n in ("flax", "chainer_back", "flax_again", "download"))
+    t0 = time.perf_counter()
+    for argv in (["--src", npz, "--dst", flat, "--direction", "to_flax"],
+                 ["--src", flat, "--dst", back, "--direction", "to_chainer"],
+                 ["--src", back, "--dst", again, "--direction", "to_flax"]):
+        if quiet(convert.main, argv) != 0:
+            raise AssertionError(f"convert {argv} failed")
+    secs = time.perf_counter() - t0
+    if quiet(download.main, ["--file", npz, "--out", dl]) != 0:
+        raise AssertionError("download --file failed")
+    first = dict(np.load(flat))
+    for name, path in (("to_chainer -> to_flax", again), ("download --file", dl)):
+        other = dict(np.load(path))
+        bad = [k for k in first if k not in other or first[k].dtype != other[k].dtype
+               or first[k].tobytes() != other[k].tobytes()]
+        if bad or other.keys() != first.keys():
+            raise AssertionError(f"convert: {name} differs at {bad[:5]}")
+    phase(f"convert CLI: full-width VGG-16 npz -> to_flax ({len(first)} tensors, "
+          f"{os.path.getsize(flat) / 2**20:.0f} MiB) -> to_chainer -> to_flax bit-equal, key for "
+          f"key ({secs:.1f} s for the three); download --file gives the same flat npz")
+
+
+def write_voc_set(tmp, n: int):
+    """``SyntheticDetection(n)`` as a VOC tree (JPEG files, annotation XML,
+    the test split) in ``tmp``, even images landscape and odd ones
+    portrait (transposed where needed), so that both canvas buckets are
+    used.  Returns the root and the number of images per bucket."""
+    import os
+
+    from trcnn_torch.config import VOC_CLASSES
+    from trcnn_torch.data import SyntheticDetection
+    from trcnn_torch.data.image import image_library, write_detections
+
+    if image_library() is None:
+        raise RuntimeError("no image library (cv2 or PIL) to write the VOC set's images")
+    root = os.path.join(tmp, "VOC2007")
+    for d in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, d))
+    ds = SyntheticDetection(n=n, seed=17)
+    ids, buckets = [], {"landscape": 0, "portrait": 0}
+    for i in range(n):
+        ex = ds.get_example(i)
+        img, boxes = ex["image"], ex["boxes"]
+        h, w = img.shape[:2]
+        if (w >= h) != (i % 2 == 0):
+            img, boxes = img.transpose(1, 0, 2).copy(), boxes[:, [1, 0, 3, 2]]
+        buckets["landscape" if img.shape[1] >= img.shape[0] else "portrait"] += 1
+        iid = f"{i:06d}"
+        ids.append(iid)
+        write_detections(img, [], [], os.path.join(root, "JPEGImages", f"{iid}.jpg"))
+        objs = "".join(
+            f"<object><name>{VOC_CLASSES[c]}</name><difficult>0</difficult><bndbox>"
+            f"<xmin>{x1 + 1:.0f}</xmin><ymin>{y1 + 1:.0f}</ymin><xmax>{x2 + 1:.0f}</xmax>"
+            f"<ymax>{y2 + 1:.0f}</ymax></bndbox></object>"
+            for (x1, y1, x2, y2), c in zip(boxes.tolist(), ex["labels"].tolist()))
+        with open(os.path.join(root, "Annotations", f"{iid}.xml"), "w") as f:
+            f.write(f"<annotation><size><width>{img.shape[1]}</width><height>{img.shape[0]}"
+                    f"</height><depth>3</depth></size>{objs}</annotation>")
+    with open(os.path.join(root, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return root, buckets
+
+
+def phase_parity(dev, by_path, npz, tmp):
+    """The parity CLI at full width on a VOC tree of 16 synthetic images
+    (8 per canvas bucket) read with ``--reference_npz`` from the exported
+    npz, float32: run 1 captures 8 goldens at batch 1 and passes
+    ``--target_map 0`` (its first kernel call of each input shape replayed
+    through the plain versions); run 2 compares them with zero deltas;
+    run 3 with ``--target_map 1.0`` prints PARITY FAIL and exits 2.  Each
+    run is a counted path, K1 exactly twice per detect call (8 goldens at
+    batch 1, one batch of 8 per bucket)."""
+    import contextlib
+    import io
+    import os
+
+    from trcnn_torch.cli import parity
+
+    root, buckets = write_voc_set(tmp, 16)
+    if buckets != {"landscape": 8, "portrait": 8}:
+        raise AssertionError(f"the VOC set's buckets {buckets}")
+    golden = os.path.join(tmp, "parity_goldens.json")
+    common = ["--voc_root", root, "--reference_npz", npz, "--golden", golden,
+              "--golden_images", "8", "--batch_size", "8", "--device", dev.type]
+    calls = 8 + 2
+    for run, extra in enumerate((["--target_map", "0"], ["--target_map", "0"],
+                                 ["--target_map", "1.0"]), 1):
+        path = f"vgg16 parity run {run}"
+        text = io.StringIO()
+        captured = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), recording(captured, first_of_shape=run == 1):
+            rep, launches = count_path(path, by_path, lambda: parity.run(common + extra))
+        secs = time.perf_counter() - t0
+        out = text.getvalue()
+        log_file("cli.txt", f"$ trcnn_torch.cli.parity {' '.join(common + extra)}\n{out}")
+        if launches["nms"] != 2 * calls:
+            raise AssertionError(f"{path}: K1 launched {launches['nms']} times in {calls} "
+                                 f"detect calls")
+        g = rep["golden"]
+        if run == 1:
+            replay(captured, "parity run 1 (first call of each kernel input shape)")
+            ok = rep["exit"] == 0 and g == {"captured": 8, "path": golden}
+        elif run == 2:
+            ok = rep["exit"] == 0 and g["ok"] and g["compared"] == 8 and \
+                g["max_box_delta"] == 0.0 and g["max_score_delta"] == 0.0
+        else:
+            ok = rep["exit"] == 2 and "PARITY FAIL" in out and g["ok"]
+        del captured
+        if not ok or not np.isfinite(rep["mAP"]):
+            raise AssertionError(f"{path}: {rep}")
+        n_dets = sum(len(v["scores"]) for v in json.load(open(golden)).values())
+        phase(f"parity CLI run {run} ({' '.join(extra)}): exit {rep['exit']}, "
+              f"mAP {rep['mAP']:.4f} on 16 VOC-layout images (8 per bucket), golden "
+              f"{json.dumps(g)} ({n_dets} golden boxes), {secs:.1f} s; launches {launches}")
+
+
+def phase_train_steps(dev, by_path):
+    """``train_steps`` at VGG-16 VOC full width, K=4 at batch 8 (bf16
+    compute, float32 master weights): one cold call as a counted path (K1
+    exactly 4 times, K1-K4 move; the state's step advances by 4, the last
+    metrics finite), then 3 calls in turns with 4 sequential ``train_step``
+    calls on the same batches: ms per step each way."""
+    import torch
+
+    from trcnn_torch.entry import train_entry
+    from trcnn_torch.train.step import BATCH_KEYS, train_step, train_steps
+
+    k = 4
+    step_fn, (state, batch) = train_entry(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    batches = [dict(batch, images=torch.randint(0, 256, batch["images"].shape, dtype=torch.uint8,
+                                                generator=gen, device=dev)) for _ in range(k)]
+    stacked = {key: torch.stack([b[key] for b in batches]) for key in BATCH_KEYS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, launches = count_path("vgg16 train_steps", by_path, lambda: train_steps(state, stacked))
+    cold = (time.perf_counter() - t0) * 1e3
+    if launches["nms"] != k or state.step != k:
+        raise AssertionError(f"train_steps: K1 {launches['nms']}, step {state.step}")
+    vals = check_step(m, k)
+
+    def sequential():
+        for b in batches:
+            train_step(state, b)
+
+    times = {"train_steps": [], "sequential": []}
+    for _ in range(3):
+        for name, run in (("train_steps", lambda: train_steps(state, stacked)),
+                          ("sequential", sequential)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / k)
+    if state.step != 7 * k:
+        raise AssertionError(f"train_steps: step {state.step} after 7 calls of {k} steps")
+    phase(f"train_steps: VGG-16 VOC b=8, K={k}: cold call {cold:.1f} ms, launches {launches}, "
+          f"step 0 -> {k}, last metrics " + ", ".join(f"{n} {x:.5g}" for n, x in vals.items())
+          + "; ms per step in turns: train_steps "
+          + ", ".join(f"{t:.2f}" for t in times["train_steps"]) + "; sequential train_step "
+          + ", ".join(f"{t:.2f}" for t in times["sequential"]))
+    del state, batches, stacked
+    torch.cuda.empty_cache()
+
+
+def phase_preprocess_device(dev, by_path):
+    """``preprocess_device`` at the VOC canvas on a (1024, 1024, 3) raw
+    buffer holding a 375x500 image, then one holding a 500x375 image (the
+    portrait bucket's config): the card's canvas within 1e-3 of the port's
+    CPU result, im_info equal; both canvases through the detect path
+    (seeded VGG-16, bf16) as one counted path, K1 twice per call; ms per
+    image on the card beside the host path's (``preprocess_image``), and
+    one call's device time by kernel family (``trcnn_torch.utils``'
+    ``trace_to`` and ``op_time_breakdown``)."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from trcnn_torch.data.preprocess import compute_scale, preprocess_device, preprocess_image
+    from trcnn_torch.entry import entry
+    from trcnn_torch.utils import op_time_breakdown, time_fn, trace_to
+
+    fn, (model, _, _) = entry(dev)
+    icfg = model.cfg.image
+    rng = np.random.default_rng(29)
+    cases = []
+    for h, w in ((375, 500), (500, 375)):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        raw = np.zeros((1024, 1024, 3), np.uint8)
+        raw[:h, :w] = img
+        cfg = icfg if w >= h else dataclasses.replace(icfg, pad_h=icfg.pad_w, pad_w=icfg.pad_h)
+        scale = compute_scale(h, w, icfg)
+        raw_dev = torch.from_numpy(raw).to(dev)
+        canvas, info = preprocess_device(raw_dev, h, w, scale, cfg)
+        want, want_info = preprocess_device(torch.from_numpy(raw), h, w, scale, cfg)
+        err = float((canvas.cpu() - want).abs().max())
+        if err > 1e-3 or not torch.equal(info.cpu(), want_info):
+            raise AssertionError(f"preprocess_device {h}x{w}: card vs CPU {err}, im_info "
+                                 f"{info.tolist()} vs {want_info.tolist()}")
+        ms, _ = time_fn(preprocess_device, raw_dev, h, w, scale, cfg)
+        host, _ = time_fn(preprocess_image, img, icfg)
+        cases.append((f"{h}x{w}", canvas, info, err, ms * 1e3, host * 1e3))
+
+    def detect_both():
+        out = []
+        for _, canvas, info, *_ in cases:
+            dets = fn(model, canvas[None], info[None])
+            check_dets(dets, 1)
+            out.append(dets)
+        return out
+
+    # one traced call (trcnn_torch.utils.trace_to): its device time by kernel family
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                             "trace_preprocess_device")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    raw_dev = torch.from_numpy(raw).to(dev)
+    with trace_to(trace_dir):
+        preprocess_device(raw_dev, h, w, scale, cfg)
+    split = op_time_breakdown(trace_dir)
+    if not split:
+        raise AssertionError("preprocess_device's trace shows no device time")
+    _, launches = count_path("vgg16 preprocess_device detect", by_path, detect_both)
+    if launches["nms"] != 2 * len(cases):
+        raise AssertionError(f"preprocess_device detect: K1 {launches['nms']} in "
+                             f"{len(cases)} calls")
+    phase("preprocess_device: " + "; ".join(
+        f"{what} in a 1024x1024 buffer -> canvas {tuple(c.shape)}, im_info "
+        f"{[round(x, 4) for x in i.tolist()]}, card vs CPU {e:.2e}, {ms:.3f} ms on the card "
+        f"against {host:.2f} ms for the host path (numpy)" for what, c, i, e, ms, host in cases)
+        + f"; both through detect: launches {launches}; the 500x375 call's device ms by "
+        f"kernel family (op_time_breakdown of a trace_to trace): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    del model, cases
+    torch.cuda.empty_cache()
 
 
 def phase_large_map(dev, by_path):
@@ -3589,9 +3870,11 @@ def grid_job(job, dev, rank, world, group):
     (:func:`move_error`).  Its launches and the replay of its kernel calls
     (the first of each input shape, every K1 call) through the plain
     versions.  (b) Given a ``ckpt_dir``: the whole state after (a) written
-    by a 2 x 2 Trainer there, restored by a 1 x 4 Trainer (gathered back
-    whole on every rank) and by a Trainer at world size 1 on rank 0:
-    bit-equal or not, and the 1 x 4 fc6 block's shape."""
+    by a 2 x 2 Trainer there (the device memory its ``save`` took on this
+    rank beside this rank's fc6/fc7 blocks and momentum), restored by a
+    1 x 4 Trainer (gathered back whole on every rank) and by a Trainer at
+    world size 1 on rank 0: bit-equal or not, and the 1 x 4 fc6 block's
+    shape."""
     import dataclasses
 
     import torch
@@ -3684,7 +3967,18 @@ def grid_job(job, dev, rank, world, group):
     t = trainer_mod.Trainer(dp_model(cfg, dev, torch.float32), cfg, tcfg, device=dev)
     load_whole_(t.state.model, t.state.optimizer, whole, momentum)
     t.state.step = len(steps)
+    # the device memory the save takes on this rank, beside its own fc6/fc7
+    # blocks and their momentum
+    own = 2 * sum(nbytes(p) for k, p in t.state.model.named_parameters() if kinds[k])
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
     t.save()
+    sync()
+    res["save"] = {"rise": (torch.cuda.max_memory_allocated() - base) if cuda else 0,
+                   "own_blocks": own, "ms": (time.perf_counter() - t0) * 1e3}
     del t
     restored = {}
     for what, grid in (("1 x 4", (1, world)), ("world 1", None)):
@@ -3718,9 +4012,11 @@ def phase_grid(dev, by_path, tmp, dtype: str = "float32", n_steps: int = 3):
     bit-identical on the four ranks; each rank launching exactly the path's
     kernels and replaying its kernel calls through the plain versions.
     Prints each rank's parameter bytes, the collectives' calls, bytes and
-    time per step by axis, peak memory.  In float32, then the restore: the
-    state written by the 2 x 2 Trainer restored bit-equal at 1 x 4 (fc6 in
-    four blocks) and at world size 1."""
+    time per step by axis, peak memory.  In float32, then the save and the
+    restore: the state written by the 2 x 2 Trainer, whose save must take
+    less device memory on ranks 1-3 than their own fc6/fc7 blocks and
+    momentum (only rank 0 gathers them whole), restored bit-equal at 1 x 4
+    (fc6 in four blocks) and at world size 1."""
     import os
 
     import torch
@@ -3805,6 +4101,16 @@ def phase_grid(dev, by_path, tmp, dtype: str = "float32", n_steps: int = 3):
     if not (alone["equal"] and alone["step"] == n_steps and alone["mesh"] == {"data": 1,
                                                                                 "model": 1}):
         raise AssertionError(f"grid restore at world size 1: {alone}")
+    saves = [r["save"] for r in ranks]
+    if any(x["rise"] >= x["own_blocks"] for x in saves[1:]):
+        raise AssertionError(f"grid save: a non-writing rank's device memory rose by more than "
+                             f"its own fc6/fc7 blocks and momentum: {saves}")
+    phase("grid save (fc6/fc7 and momentum gathered to rank 0 alone, through host memory): "
+          "device memory rise over Trainer.save per rank " + ", ".join(
+              f"{r} {x['rise'] / 2**20:.1f} MiB ({x['ms']:.0f} ms)" for r, x in enumerate(saves))
+          + f"; limit on ranks 1-3: their own blocks and momentum, "
+          f"{saves[1]['own_blocks'] / 2**20:.1f} MiB (when every rank gathered the whole "
+          f"state for a save: 4.90 GiB peak on the non-writing ranks, H100 80GB HBM3, 700 W)")
     phase(f"grid restore: the state after the grid steps written by the 2 x 2 Trainer "
           f"({sorted(os.listdir(job['ckpt_dir']))}), restored at 1 x 4 (fc6 blocks {want_fc6} on "
           f"each of the 4 ranks) and at world size 1: parameters and momentum bit-equal")
@@ -3862,6 +4168,10 @@ def main() -> int:
         phase_eval(dev, by_path, npz, tmp)
         phase_train_cli(dev, by_path, npz, sd, tmp)
         phase_forward_cli(dev, by_path, npz, tmp)
+        phase_convert(npz, tmp)
+        phase_parity(dev, by_path, npz, tmp)
+    phase_train_steps(dev, by_path)
+    phase_preprocess_device(dev, by_path)
     phase_coco_kernels(dev, rec)
     for backbone in BACKBONES:
         by_path[f"{backbone} coco detect"] = phase_coco_detect(dev, backbone, rec)

@@ -120,7 +120,7 @@ def test_train_takes_a_step_and_writes_a_checkpoint(files, capsys):
     out = str(d / "train")
     trainer = train.run(["--dataset", "voc", "--dataset_root", root, "--split", "test",
                          "--pretrained_model", npz, "--batch_size", "1", "--iters", "1",
-                         "--log_every", "1", "--out", out, "--device", "cpu"])
+                         "--log_every", "1", "--out", out, "--no_writer", "--device", "cpu"])
     assert trainer.state.step == 1
     assert os.listdir(out) == ["ckpt_00000001.pt"]
     text = capsys.readouterr().out

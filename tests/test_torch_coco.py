@@ -438,7 +438,7 @@ def test_train_cli_takes_a_coco_step(coco_files, capsys):
     trainer = train.run(["--dataset", "coco", "--coco_image_root", img_dir,
                          "--coco_ann_file", ann_file, "--pretrained_model", npz,
                          "--batch_size", "1", "--iters", "1", "--log_every", "1", "--out", out,
-                         "--device", "cpu"])
+                         "--no_writer", "--device", "cpu"])
     assert trainer.state.step == 1 and os.listdir(out) == ["ckpt_00000001.pt"]
     assert trainer.cfg.num_classes == 81 and trainer.cfg.image.pad_w == 1344
     assert trainer.state.model.head.cls_score.weight.shape[0] == 81

@@ -29,7 +29,7 @@ def test_train_cli_no_mesh_leaves_the_checkpoint_to_process_zero(tmp_path):
     out = str(tmp_path)
     spec = {"cfg": dataclasses.asdict(cfg), "name": "nomesh", "out": out, "argv": [
         "--dataset", "synthetic", "--iters", "1", "--batch_size", "2", "--log_every", "1",
-        "--out", f"{out}/ckpt", "--device", "cpu", "--coordinator", f"file://{out}/store",
+        "--out", f"{out}/ckpt", "--no_writer", "--device", "cpu", "--coordinator", f"file://{out}/store",
         "--num_processes", str(WORLD), "--no_mesh"]}
     _join([_launch(f"{out}/nomesh.json", spec, range(WORLD), cli=True)])
     ranks = [_load(out, "nomesh", r) for r in range(WORLD)]

@@ -16,7 +16,7 @@ import torch
 
 from trcnn import config as jax_config
 from trcnn_torch import _build, config
-from trcnn_torch.cli import add_common_flags, evaluate, forward, train
+from trcnn_torch.cli import add_common_flags, evaluate, forward, parity, train
 from trcnn_torch.entry import dryrun_multichip, entry, train_entry
 from trcnn_torch.eval import Evaluator
 from trcnn_torch.models import make_model
@@ -41,20 +41,22 @@ def torch_threads():
 
 def test_port_imports_no_jax():
     """Every module of the port, the data layer and the CLIs included,
-    imports without loading JAX, flax, optax or the JAX package, and
+    imports without loading JAX, flax, optax, clu or the JAX package, and
     without cv2 or PIL (the image libraries load only when a file is read
     or written)."""
     code = (
         "import importlib, pkgutil, sys, trcnn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(trcnn_torch.__path__, 'trcnn_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 47, names\n"
+        "assert len(names) >= 54, names\n"
         "for n in ('cli.forward', 'cli.evaluate', 'cli.train', 'data.loader', 'eval.evaluator',\n"
         "          'convert_chainer', 'convert_caffemodel', 'weights', 'data.coco',\n"
-        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant', 'parallel', 'parallel.tensor'):\n"
+        "          'eval.coco_ap', 'ops.roi_align', 'ops.quant', 'parallel', 'parallel.tensor',\n"
+        "          'cli.convert', 'cli.download', 'cli.parity', 'ops.native', 'utils',\n"
+        "          'utils.profiling', 'utils.debug'):\n"
         "    assert 'trcnn_torch.' + n in names, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'optax', 'trcnn', 'cv2', 'PIL')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'clu', 'trcnn', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -79,6 +81,8 @@ def test_entry_points_default_to_the_card():
         add_common_flags(ap)
         assert ap.parse_args([]).device == "cuda"
         assert cli.add_common_flags is add_common_flags
+    assert parity.parse(["--dataset", "synthetic"]).device == "cuda"
+    assert parity.parse(["--dataset", "synthetic", "--cpu"]).device == "cpu"
     if not torch.cuda.is_available():      # nothing falls back to the CPU
         with pytest.raises((AssertionError, RuntimeError)):
             make_model(_tiny_cfg())

@@ -222,7 +222,7 @@ def dp(tmp_path_factory):
     cli_out = f"{out}/cli"
     cli = {"cfg": dataclasses.asdict(vgg), "argv": [
         "--dataset", "synthetic", "--iters", "1", "--batch_size", "2", "--log_every", "1",
-        "--eval_every", "1", "--eval_limit", "3", "--eval_synthetic_n", "3", "--out", cli_out,
+        "--eval_every", "1", "--eval_limit", "3", "--eval_synthetic_n", "3", "--out", cli_out, "--no_writer",
         "--device", "cpu", "--coordinator", f"file://{out}/cli_store", "--num_processes", "2"]}
     launches = [
         _launch(f"{out}/alone.json", {"store": None, "world": 1, "out": out, "jobs": alone}, [0]),
@@ -420,7 +420,8 @@ def test_train_cli_distributed_from_the_environment(tmp_path, monkeypatch):
         monkeypatch.setenv(k, v)
     try:
         trainer = train.run(["--dataset", "synthetic", "--iters", "1", "--batch_size", "1",
-                             "--out", str(tmp_path), "--device", "cpu", "--distributed"])
+                             "--out", str(tmp_path), "--no_writer", "--device", "cpu",
+                             "--distributed"])
         assert torch.distributed.get_backend() == "gloo" and trainer.group is not None
         assert trainer.state.step == 1 and trainer.state.group is trainer.group
         assert parallel.initialize() == torch.device("cpu") and parallel.world_size() == 1

@@ -191,7 +191,7 @@ def test_grid_step_matches_jax_mesh_step(grid):
 
 def test_checkpoint_from_a_grid_resumes_on_another_grid_and_alone(grid):
     """The 2 x 2 trainer wrote ckpt_1 and ckpt_2 in the one-process format
-    (whole fc6/fc7 and traces: every rank gathered, rank 0 wrote); a Trainer
+    (whole fc6/fc7 and traces: rank 0 gathered and wrote); a Trainer
     on a 1 x 4 grid over the same directory restores ckpt_2 bit-equal
     (parameters and momentum gathered back whole on every rank), its fc6
     cut in four, and one more step moves fc6.  A Trainer at world size 1
@@ -224,6 +224,27 @@ def test_checkpoint_from_a_grid_resumes_on_another_grid_and_alone(grid):
     train_step(t.state, torch.load(f"{grid['out']}/vgg_batches.pt")[0])
     assert t.state.step == 3 and digest(t.state.model) != before
     assert not torch.equal(t.state.model.head.fc6.weight, ck["model"]["head.fc6.weight"])
+
+
+def test_checkpoint_is_gathered_on_the_writing_rank_only(grid, tmp_path):
+    """In each of the 2 x 2 trainer's saves, only the writing rank (rank 0)
+    made a tensor of the whole fc6 or fc7 weight's shape (every operation
+    watched, collectives and host copies included); the other three held
+    their blocks only.  The checkpoint is, byte for byte, the one a
+    Trainer at world size 1 writes for the same state."""
+    ranks = grid["res"]["trainer"]
+    saves = [r["whole_in_save"] for r in ranks]     # two per fit: every step's and the last
+    assert saves == [[True] * 4] + [[False] * 4] * 3, saves
+    cfg = grid["cfg"]
+    name = "ckpt_00000002.pt"
+    ck = torch.load(f"{grid['out']}/ckpt/{name}")
+    t = Trainer(make_model(cfg, device="cpu"), cfg, TrainConfig(
+        checkpoint_every=0, checkpoint_dir=str(tmp_path)), device="cpu")
+    tensor.load_whole_(t.state.model, t.state.optimizer, ck["model"], ck["optimizer"]["momentum"])
+    t.state.step = ck["step"]
+    t.save()
+    with open(f"{grid['out']}/ckpt/{name}", "rb") as a, open(tmp_path / name, "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_fc6_bias_gradient_is_summed_over_the_model_group(grid):

@@ -32,7 +32,8 @@ Jobs (``kind``):
   from; the rank's (data index, model index);
 - "trainer": ``Trainer.fit`` on this data index's rows of ``batches``, one
   checkpoint a step into ``ckpt_dir``, one ``fit`` call per batch; the
-  replica's digest after each; with ``resume`` (n_data, n_model), a second
+  replica's digest after each, and per ``save`` whether any operation in
+  it made a tensor of the whole fc6 or fc7 weight's shape; with ``resume`` (n_data, n_model), a second
   Trainer on that grid over the same directory: whether its restored state,
   gathered whole, equals the newest checkpoint bit for bit, its fc6 block's
   shape, and how far one more step (``train_step`` on its state, no
@@ -55,6 +56,8 @@ import sys
 from typing import List
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -112,6 +115,25 @@ def _head_job(cfg, mesh):
     return res
 
 
+class _Shapes(TorchDispatchMode):
+    """The shapes of every tensor that an operation makes while it is
+    active (collectives and host copies included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.shapes.update(tuple(t.shape) for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+        return out
+
+
+def _whole_shapes(cfg) -> set:
+    """The shapes of the whole fc6 and fc7 weights (torch's (out, in))."""
+    return {(cfg.head_hidden, 7 * 7 * 512), (cfg.head_hidden, cfg.head_hidden)}
+
+
 def run_job(job: dict, rank: int, world: int, mesh):
     cfg = config_from_dict(job["cfg"])
     kind = job["kind"]
@@ -149,11 +171,21 @@ def run_job(job: dict, rank: int, world: int, mesh):
         trainer = Trainer(_model(cfg, job["state"]), cfg, TrainConfig(
             total_iters=len(batches), log_every=1, checkpoint_every=1,
             checkpoint_dir=job["ckpt_dir"]), device="cpu")
+        whole = _whole_shapes(cfg)
+        saves = []
+        save = trainer.save
+
+        def watched_save():
+            with _Shapes() as seen:
+                save()
+            saves.append(bool(seen.shapes & whole))
+
+        trainer.save = watched_save
         digests = []
         for batch in batches:
             trainer.fit([batch])
             digests.append(digest(trainer.state.model, trainer.state.optimizer.momentum))
-        res = {"digests": digests, "step": trainer.state.step}
+        res = {"digests": digests, "step": trainer.state.step, "whole_in_save": saves}
         if job.get("resume"):
             n_data, n_model = job["resume"]
             trainer_mod.make_mesh = lambda: parallel.make_mesh(n_data, n_model)

@@ -17,7 +17,9 @@ Package map (mirrors ``trcnn``):
                                forward (K2) and backward (K4) and the stem
                                (K3) launch hand-written CUDA kernels
                                (``csrc/``) on CUDA tensors and run their
-                               plain PyTorch versions on CPU tensors.
+                               plain PyTorch versions on CPU tensors;
+                               ``ops.native`` binds the C++ host ops of
+                               ``native/`` (built with g++ at first use).
 - :mod:`trcnn_torch.targets` — anchor and proposal target assignment, with
                                the sampling uniforms as arguments.
 - :mod:`trcnn_torch.models`  — VGG-16 trunk (frozen stem) and its fc RoI
@@ -27,11 +29,13 @@ Package map (mirrors ``trcnn``):
                                R-CNN composite (detect, postprocess,
                                losses) over either backbone.
 - :mod:`trcnn_torch.train`   — the Caffe-order MomentumSGD, the train step
-                               (data-parallel over a process group) and the
-                               trainer with checkpoint/resume, upload
-                               lookahead and the evaluator hook.
+                               (data-parallel over a process group), K
+                               steps per call, and the trainer with
+                               checkpoint/resume, upload lookahead, the
+                               evaluator hook, hooks and a metric writer.
 - :mod:`trcnn_torch.data`    — preprocessing (the port's own resize,
-                               bit-equal to OpenCV's generic bilinear),
+                               bit-equal to OpenCV's generic bilinear, and
+                               JAX's resize on the card),
                                image files through cv2 or PIL, the VOC,
                                synthetic and concatenated datasets and the
                                batching loader.
@@ -42,8 +46,11 @@ Package map (mirrors ``trcnn``):
                                ``initialize`` (the JAX arguments or the
                                environment), the ranks' collectives and
                                the host gather of the sharded evaluator.
-- :mod:`trcnn_torch.cli`     — ``forward``, ``evaluate`` and ``train``, run
-                               as ``python -m trcnn_torch.cli.<name>``.
+- :mod:`trcnn_torch.cli`     — ``forward``, ``evaluate``, ``train``,
+                               ``convert``, ``download`` and ``parity``,
+                               run as ``python -m trcnn_torch.cli.<name>``.
+- :mod:`trcnn_torch.utils`   — timing, ``torch.profiler`` traces and their
+                               device-time breakdown, the NaN debug mode.
 - :mod:`trcnn_torch.config`  — the port's copy of the config classes.
 - :mod:`trcnn_torch.convert` — flax parameter tree and optax momentum trace
                                <-> ``state_dict`` and momentum buffers.

@@ -1,7 +1,9 @@
 """Command-line entry points of the port, each ``python -m
 trcnn_torch.cli.<name>`` and ``main(argv=None)``: ``forward`` (one image ->
 detections), ``evaluate`` (a dataset -> VOC mAP and devkit files, or COCO
-AP) and ``train``.  They run on the card unless given ``--device cpu``.
+AP), ``train``, ``parity`` (the accuracy gate), and ``convert`` and
+``download`` (weights, numpy on the host).  Those that run the model run
+on the card unless given ``--device cpu``.
 
 Shared here: the flags every one of them has, and the device set-up.  In
 float32 (the default, bit-parity with the reference) TF32 is off for

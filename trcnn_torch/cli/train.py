@@ -32,6 +32,11 @@ the three explicit flags name it (``--coordinator`` may also be a
 process 0 logs and writes checkpoints; the evaluator hook shards the
 held-out set over the same group.  ``--no_mesh`` trains each process
 alone.
+
+With ``--out`` the main process also writes the logged metrics and the
+evaluations' scalars (per-class APs included) as TensorBoard summaries
+under ``<out>/tb``, when ``tensorboard`` imports; else it says so and logs
+to stdout only.  ``--no_writer`` turns that off.
 """
 
 from __future__ import annotations
@@ -100,6 +105,8 @@ def parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
                     help="evaluate the first N held-out images")
     ap.add_argument("--eval_synthetic_n", type=int, default=256,
                     help="--dataset synthetic: the held-out set's size")
+    ap.add_argument("--no_writer", action="store_true",
+                    help="no TensorBoard metric writer under <out>/tb (stdout JSON lines only)")
     ap.add_argument("--no_mesh", action="store_true",
                     help="no data parallelism: each process trains alone (debug)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -122,6 +129,33 @@ def parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
         ap.error("--dataset coco with --eval_every requires --coco_eval_image_root and "
                  "--coco_eval_ann_file")
     return args
+
+
+class TensorBoardWriter:
+    """``write_scalars(step, {name: float})`` onto a
+    ``torch.utils.tensorboard.SummaryWriter``."""
+
+    def __init__(self, logdir: str):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self.writer = SummaryWriter(logdir)
+
+    def write_scalars(self, step: int, scalars) -> None:
+        for name, value in scalars.items():
+            self.writer.add_scalar(name, value, step)
+
+    def flush(self) -> None:
+        self.writer.flush()
+
+
+def make_writer(logdir: str) -> Optional[TensorBoardWriter]:
+    """A TensorBoard writer under ``logdir``, or None (said on stdout) when
+    this machine cannot make one."""
+    try:
+        return TensorBoardWriter(logdir)
+    except Exception as e:         # no tensorboard package, or a broken one
+        print(f"[train] metric writer unavailable ({e}); stdout JSON-lines only", flush=True)
+        return None
 
 
 def run(argv: Optional[Sequence[str]] = None) -> Trainer:
@@ -169,10 +203,14 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
             print(f"warm-start: {len(imported)} tensors from {args.pretrained_model}",
                   flush=True)
 
+    writer = None
+    if args.out and not args.no_writer and parallel.is_main_process():
+        writer = make_writer(f"{args.out}/tb")
     trainer = Trainer(model, cfg, TrainConfig(
         total_iters=args.iters, log_every=args.log_every,
         checkpoint_every=args.checkpoint_every, checkpoint_dir=args.out, seed=args.seed,
-        use_mesh=not args.no_mesh, eval_every=args.eval_every), device=device)
+        use_mesh=not args.no_mesh, metric_writer=writer, eval_every=args.eval_every),
+        device=device)
     if args.eval_every:
         if args.dataset == "voc":
             # the held-out set is the first root's (VOC07 test, also for 07+12)
@@ -188,6 +226,8 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
                                       batch_size=args.batch_size, device=device,
                                       group=trainer.group)
     trainer.fit(loader)
+    if writer is not None:
+        writer.flush()
     if parallel.is_main_process():
         print("training done", flush=True)
     return trainer

@@ -89,8 +89,9 @@ class ProposalTargetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RoIConfig:
-    """RoI feature extraction: "max" is Caffe's roi_pooling_2d, "align"
-    bilinear RoIAlign (not ported yet)."""
+    """RoI feature extraction: "max" is Caffe's roi_pooling_2d (kernels K2
+    and K4), "align" bilinear RoIAlign (``trcnn_torch/ops/roi_align.py``,
+    kernels K5 and K6)."""
 
     output_size: int = 7
     spatial_scale: float = 1.0 / 16.0

@@ -1,5 +1,6 @@
-"""Host image preprocessing: the port's copy of
-``trcnn/data/preprocess.py:26-100`` (numpy only).
+"""Image preprocessing: the port's copy of ``trcnn/data/preprocess.py``,
+the host path (numpy, lines 26-100) and :func:`preprocess_device` (torch,
+on any device, lines 102-147).
 
 BGR channel order, Caffe pixel means, the 600/1000 scale rule, and the
 static padded canvas: every image lands in the top-left corner of a
@@ -27,11 +28,14 @@ cv2's default dispatch (SIMD or IPP) rounds otherwise at some scales:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from trcnn_torch.config import ImageConfig
+from trcnn_torch.ops.boxes import device_constant
 
 
 def compute_scale(h: int, w: int, cfg: ImageConfig = ImageConfig(),
@@ -124,3 +128,86 @@ def scale_gt_boxes(boxes: np.ndarray, scale: float, orig_w: int, flip: bool = Fa
         boxes[:, 0] = orig_w - 1.0 - boxes[:, 2]
         boxes[:, 2] = orig_w - 1.0 - x1
     return boxes * scale
+
+
+def _weight_mat(n_in: int, n_out: int, scale: torch.Tensor) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.scale_and_translate``'s
+    linear (triangle) kernel without antialiasing and with no translation,
+    as ``jax/_src/image/scale.py::compute_weight_mat`` makes them: sample
+    positions ``(j + 0.5) / scale - 0.5``, weights ``max(0, 1 - |sample -
+    i|)``, each column divided by its sum (0 where the sum is at most 1000
+    float32 eps), and 0 for samples outside ``[-0.5, n_in - 0.5]``."""
+    dev = scale.device
+    inv = 1.0 / scale
+    sample = (torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=dev)[:, None]).abs()
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 matmuls in float32 on the card (TF32 would round the
+    inputs to 10 mantissa bits)."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def preprocess_device(raw_u8: torch.Tensor, raw_h: Union[int, torch.Tensor],
+                      raw_w: Union[int, torch.Tensor], scale: Union[float, torch.Tensor],
+                      cfg: ImageConfig = ImageConfig()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Preprocessing on the raw buffer's device: raw uint8 buffer ->
+    mean-subtracted canvas, the counterpart of the JAX package's jittable
+    ``preprocess_device``.
+
+    raw_u8: (RAW_H, RAW_W, 3) uint8 BGR, the image in the top-left corner
+    (contents beyond ``raw_h`` x ``raw_w`` are ignored); ``scale``: the
+    resize factor (:func:`compute_scale`).  Returns (canvas (cfg.pad_h,
+    cfg.pad_w, 3) float32, im_info (3,) float32 = (sh, sw, scale)) on that
+    device; the canvas goes straight into ``FasterRCNN.detect`` (float
+    input skips its uint8 preparation).  A portrait image takes the
+    portrait bucket's config (pad_h and pad_w swapped, :func:`canvas_shape`).
+
+    The resize is JAX's ``scale_and_translate(method="linear",
+    antialias=False)``, not cv2's: half-pixel sample positions, zeros
+    outside the image, so the masked raw buffer's zeros bleed into the
+    scaled image's last row and column (cv2 clamps there).  The target
+    size is ``round(raw * scale)`` in float32, half to even as
+    ``jnp.round``, and each axis's scale is that size over the raw one.
+    The two contractions run in float32 (TF32 off for them on the card).
+    """
+    dev = raw_u8.device
+    x = raw_u8.to(torch.float32)
+    if any(torch.is_tensor(v) for v in (raw_h, raw_w, scale)):
+        extent = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev)
+                              for v in (raw_h, raw_w, scale)])
+    else:                   # one upload from pinned memory: the stream does not wait
+        extent = torch.tensor([raw_h, raw_w, scale], dtype=torch.float32)
+        if dev.type == "cuda":
+            extent = extent.pin_memory()
+        extent = extent.to(dev, non_blocking=True)
+    raw_h, raw_w, s = extent.unbind()
+    yy = torch.arange(x.shape[0], device=dev)[:, None, None]
+    xx = torch.arange(x.shape[1], device=dev)[None, :, None]
+    x = torch.where((yy < raw_h) & (xx < raw_w), x, 0.0)
+
+    sh = torch.round(raw_h * s)
+    sw = torch.round(raw_w * s)
+    wh = _weight_mat(x.shape[0], cfg.pad_h, sh / raw_h)
+    ww = _weight_mat(x.shape[1], cfg.pad_w, sw / raw_w)
+    with _no_tf32():
+        rows = torch.tensordot(wh, x, dims=([0], [0]))                     # (pad_h, RAW_W, 3)
+        canvas = torch.tensordot(ww, rows, dims=([0], [1])).transpose(0, 1)  # (pad_h, pad_w, 3)
+    yy2 = torch.arange(cfg.pad_h, device=dev)[:, None, None]
+    xx2 = torch.arange(cfg.pad_w, device=dev)[None, :, None]
+    inside = (yy2 < sh) & (xx2 < sw)
+    canvas = torch.where(inside, canvas - device_constant(cfg.pixel_means_bgr, dev), 0.0)
+    return canvas.contiguous(), torch.stack([sh, sw, s])

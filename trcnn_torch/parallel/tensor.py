@@ -14,7 +14,8 @@ The head's two collectives are autograd Functions with their backward
 written out (:func:`copy_to_model`, :func:`reduce_from_model`); the
 parameter and state helpers slice a whole tensor for this rank or gather
 the slices whole again (:func:`shard_model_`, :func:`whole_state`,
-:func:`load_whole_`, :func:`whole_head`).  Each gather is a collective
+:func:`load_whole_`, :func:`whole_head`; :func:`checkpoint_state` gathers
+to the first rank only).  Each gather is a collective
 over the model group: every rank of the grid calls it, in the same order.
 """
 
@@ -108,6 +109,42 @@ def whole_state(model: nn.Module, momentum: Dict[str, torch.Tensor]
             sd[name] = gather(sd[name], kind, mesh)
             mom[name] = gather(mom[name], kind, mesh)
     return sd, mom
+
+
+@torch.no_grad()
+def checkpoint_state(model: nn.Module, momentum: Dict[str, torch.Tensor]
+                     ) -> Optional[Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+    """What :func:`whole_state` returns, on the first rank of the world
+    only, which writes checkpoints; None on every other rank of a grid.
+
+    Only the model group of data index 0 (which holds the first rank)
+    takes part: each of its ranks copies its fc6/fc7 blocks and their
+    momentum to host memory and sends them to the first rank
+    (``dist.gather`` over the group's gloo group: gloo gathers host
+    tensors only), which concatenates them and puts the whole tensors on
+    its own device, where the one-process state lives, so that the
+    checkpoint's bytes are one process's.  No other rank holds a whole
+    fc6/fc7 tensor, on the device or on the host.  Without a model group
+    every rank gets its own state."""
+    sd, mom = model.state_dict(), dict(momentum)
+    mesh = _mesh_of(model)
+    if mesh is None:
+        return sd, mom
+    if mesh.data_index:
+        return None
+    from trcnn_torch import parallel
+
+    group = parallel.host_group(mesh.model)
+    first = dist.get_process_group_ranks(mesh.model)[0]
+    mine = dist.get_rank() == first
+    for name, kind, _ in _owners(model):
+        for tree in (sd, mom):
+            block = tree[name].detach().cpu()
+            parts = [torch.empty_like(block) for _ in range(mesh.n_model)] if mine else None
+            dist.gather(block, parts, dst=first, group=group)
+            if mine:
+                tree[name] = torch.cat(parts, DIM[kind]).to(tree[name].device)
+    return (sd, mom) if mine else None
 
 
 @torch.no_grad()

@@ -9,7 +9,8 @@ draws the sampling uniforms and the dropout masks, is seeded from
 one would, as the JAX step's ``fold_in(rng, state.step)`` does.  The
 generators' numbers are not JAX's; the tests hand in JAX's draws.  The
 three stages run under ``torch.profiler`` spans named in ``STAGES``, which
-record nothing when no profiler runs.
+record nothing when no profiler runs.  :func:`train_steps` takes K steps
+in one call (JAX's ``inner_steps=K``).
 
 The JAX step's (data, model) mesh is a grid of ``torch.distributed``
 processes (:func:`trcnn_torch.parallel.make_mesh`).  Over ``data`` every
@@ -153,4 +154,25 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
         parallel.all_reduce_sum_([values], state.group)
         metrics = dict(zip(metrics, values.unbind()))
     metrics["grad_norm"] = norm
+    return metrics
+
+
+def train_steps(state: TrainState, batches: Dict[str, torch.Tensor], seed: int = 0
+                ) -> Dict[str, torch.Tensor]:
+    """K optimizer steps in one call, in place on ``state``: the
+    counterpart of ``make_train_step(..., inner_steps=K)``.
+
+    Every array of ``batches`` (the five ``BATCH_KEYS``) carries a leading
+    K axis, one slice per step.  The steps are :func:`train_step`'s, one
+    after the other with nothing read back to the host between them, each
+    drawing from ``step_generator(seed, state.step)`` as K separate calls
+    would (the JAX scan folds ``state.step`` into its key alike), and over
+    the (data, model) grid as it does.  Returns the last step's metrics."""
+    k = batches["images"].shape[0]
+    if k < 1 or any(batches[key].shape[0] != k for key in BATCH_KEYS):
+        raise ValueError("every array of batches needs the same leading K axis, K >= 1: "
+                         + ", ".join(f"{key} {tuple(batches[key].shape)}" for key in BATCH_KEYS))
+    metrics: Dict[str, torch.Tensor] = {}
+    for i in range(k):
+        metrics = train_step(state, {key: batches[key][i] for key in BATCH_KEYS}, seed)
     return metrics

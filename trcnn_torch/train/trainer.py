@@ -13,7 +13,11 @@ device from pinned memory ``upload_lookahead`` batches ahead of the step
 that takes them, so that the copies overlap the steps before.  An
 ``evaluator`` (``model -> {metric: float}``, e.g.
 :class:`trcnn_torch.eval.Evaluator`) runs every ``eval_every`` steps and
-after the last step.
+after the last step.  ``TrainConfig.metric_writer`` (any object with
+``write_scalars(step, {name: float})``, e.g. the train CLI's TensorBoard
+writer) takes each log step's metrics and every scalar of each evaluation,
+the per-class APs included; ``fit``'s ``hooks`` ({step: callable}) run
+with the trainer after that step's log, checkpoint and evaluation.
 
 Data parallel (``TrainConfig.use_mesh``, the default, once
 :func:`trcnn_torch.parallel.initialize` has made a process group): the step
@@ -22,8 +26,8 @@ runs over the grid of the module-level :func:`make_mesh` (every rank on
 each process feeding its data index's loader shard, and ``imgs_per_sec``
 counts the global batch.  Only the first rank logs and writes
 checkpoints; the others wait for the file at a barrier.  A checkpoint
-holds the one-process state (fc6/fc7 and their traces gathered whole over
-each model group by every rank first), and every rank restores it onto
+holds the one-process state (fc6/fc7 and their traces gathered whole on
+the first rank alone, through host memory), and every rank restores it onto
 its own device and slices it for its grid, so a run resumes on any grid
 and at any world size.
 """
@@ -35,7 +39,7 @@ import json
 import os
 import re
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,7 +48,7 @@ from trcnn_torch import parallel
 from trcnn_torch.config import FasterRCNNConfig
 from trcnn_torch.models.faster_rcnn import FasterRCNN
 from trcnn_torch.parallel import make_mesh
-from trcnn_torch.parallel.tensor import load_whole_, whole_state
+from trcnn_torch.parallel.tensor import checkpoint_state, load_whole_
 from trcnn_torch.train.step import TrainState, device_batch, train_step
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt$")
@@ -59,6 +63,7 @@ class TrainConfig:
     keep_checkpoints: int = 5
     seed: int = 0
     use_mesh: bool = True               # data parallel over the process group, if one exists
+    metric_writer: Optional[Any] = None  # anything with write_scalars(step, {name: float})
     eval_every: int = 0                 # run the evaluator every N steps (0: off)
     upload_lookahead: int = 2           # batches uploaded ahead of the step
 
@@ -114,14 +119,16 @@ class Trainer:
         return parallel.is_main_process()
 
     def save(self) -> None:
-        """Write ``ckpt_<step>.pt`` (the first rank, after every rank has
-        gathered the whole state; the others wait for it)."""
+        """Write ``ckpt_<step>.pt`` (the first rank, which alone gathers
+        fc6/fc7 and their momentum whole: :func:`checkpoint_state`; the
+        others wait for it)."""
         if not self.tcfg.checkpoint_dir:
             return
         st = self.state
         path = os.path.join(self.tcfg.checkpoint_dir, f"ckpt_{st.step:08d}.pt")
-        model, momentum = whole_state(st.model, st.optimizer.momentum)
+        whole = checkpoint_state(st.model, st.optimizer.momentum)
         if self._main() and not os.path.exists(path):   # else this step is saved already
+            model, momentum = whole
             torch.save({"model": model, "optimizer": {"momentum": momentum}, "step": st.step},
                        path + ".tmp")
             os.replace(path + ".tmp", path)
@@ -146,11 +153,14 @@ class Trainer:
 
     # ---- loop
 
-    def fit(self, batches: Iterable) -> TrainState:
+    def fit(self, batches: Iterable,
+            hooks: Optional[Dict[int, Callable[["Trainer"], Any]]] = None) -> TrainState:
         """Run up to ``total_iters`` steps over ``batches``; log one JSON line
-        every ``log_every`` steps, checkpoint every ``checkpoint_every`` and
-        at the end, evaluate every ``eval_every`` steps and after the last
-        one.  Data parallel, ``batches`` are this rank's shards."""
+        every ``log_every`` steps (and hand the metrics to the metric
+        writer), checkpoint every ``checkpoint_every`` and at the end,
+        evaluate every ``eval_every`` steps and after the last one, and
+        after all of that call ``hooks[step](self)`` for a step in
+        ``hooks``.  Data parallel, ``batches`` are this rank's shards."""
         tcfg = self.tcfg
         total = tcfg.total_iters or self.cfg.optim.total_iters
         st = self.state
@@ -170,11 +180,17 @@ class Trainer:
             enqueue()
             metrics = train_step(st, batch, tcfg.seed)
             imgs += batch["images"].shape[0] * self.mesh.n_data
-            if (st.step % tcfg.log_every == 0 or st.step == total) and self._main():
-                dt = time.time() - t0
-                print(json.dumps({"step": st.step, "imgs_per_sec": round(imgs / max(dt, 1e-9), 2),
-                                  **{k: round(float(v), 5) for k, v in metrics.items()}}),
-                      flush=True)
+            if st.step % tcfg.log_every == 0 or st.step == total:
+                # read back only where something takes it
+                values = ({k: float(v) for k, v in metrics.items()}
+                          if self._main() or tcfg.metric_writer is not None else {})
+                if self._main():
+                    dt = time.time() - t0
+                    print(json.dumps({"step": st.step,
+                                      "imgs_per_sec": round(imgs / max(dt, 1e-9), 2),
+                                      **{k: round(v, 5) for k, v in values.items()}}), flush=True)
+                if tcfg.metric_writer is not None:
+                    tcfg.metric_writer.write_scalars(st.step, values)
                 t0, imgs = time.time(), 0
             if tcfg.checkpoint_every and st.step % tcfg.checkpoint_every == 0:
                 self.save()
@@ -182,6 +198,8 @@ class Trainer:
                     st.step % tcfg.eval_every == 0 or st.step == total):
                 self.run_eval(st.step)
                 t0, imgs = time.time(), 0         # eval time is not training time
+            if hooks and st.step in hooks:
+                hooks[st.step](self)
         self.save()
         if self.evaluator is not None and tcfg.eval_every:
             if st.step % tcfg.eval_every and st.step != total:
@@ -191,9 +209,12 @@ class Trainer:
     def run_eval(self, step: int) -> Dict[str, float]:
         """Evaluate the current model (every rank: the evaluator gathers over
         the group); the first rank prints the scalars without a class in
-        their name as one JSON line."""
+        their name as one JSON line and hands every scalar, the per-class
+        APs included, to the metric writer."""
         results = {k: float(v) for k, v in self.evaluator(self.state.model).items()}
         if self._main():
             print(json.dumps({"step": step, **{k: round(v, 4) for k, v in results.items()
                                                if "/" not in k}}), flush=True)
+            if self.tcfg.metric_writer is not None:
+                self.tcfg.metric_writer.write_scalars(step, results)
         return results
