@@ -68,14 +68,20 @@ Phases, one line each, any failure raises and exits non-zero:
    bf16;
 10. the two opt-in model modes: K5 and K6 (RoIAlign forward and backward,
     CUDA kernels for the JAX package's XLA RoIAlign) against their plain
-    versions, chunked over RoIs, at VGG-16 VOC (8, 300) P=7 C=512 and R101
-    COCO (8, 1000) P=14 C=1024, bf16 and f32 feat, K6 at 128 RoIs, with
-    times and bounds; the small configs of both backbones with RoIAlign on
+    versions, chunked over RoIs: at every shape of
+    ``tests/test_torch_kernels.py::ALIGN_SHAPES`` and at VGG-16 VOC (8, 300)
+    P=7 C=512 and R101 COCO (8, 1000) P=14 C=1024, bf16 and f32 feat, K5
+    bit-equal with float32 and with bfloat16 output, K6 (at 128 RoIs)
+    within tolerance with float32 and bfloat16 g and bit-identical on a
+    second call; at the two path shapes with times, bounds and the library
+    yardstick (``F.grid_sample`` + ``F.avg_pool2d``, forward and backward);
+    the small configs of both backbones with RoIAlign on
     the card against the CPU; the small int8 VGG-16 on the card against
     the CPU (with an exact stem, no int8 code apart at any quantized
     input); RoIAlign detect and train on VGG-16 VOC and on R101 COCO, each
     a counted path with its profile, peak memory, replayed kernel calls,
-    and K5 / K6 checked and timed on the path's own inputs; int8 VGG-16
+    and K5 / K6 checked and timed on the path's own inputs (K5 writing its
+    crops in the compute dtype, K6 reading g in it); int8 VGG-16
     detect on VOC (a request and b=8) and COCO (b=8), counted, beside the
     bf16 model of the same weights in turns, profiled, and each quantized
     layer's int8 GEMM and whole int8 layer against its bf16 layer.
@@ -136,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1077,7 +1084,7 @@ def train_step_parity(cpu, gpu, args, uniforms, proposals, what) -> None:
 KERNEL_GROUPS = (("trcnn_nms", "K1 nms"), ("roi_pool_fwd", "K2 roi_pool"),
                  ("roi_pool_bwd", "K4 roi_pool_bwd"), ("stem_", "K3 stem"),
                  ("roi_align_fwd", "K5 roi_align"), ("roi_align_bwd", "K6 roi_align_bwd"),
-                 ("round_to_bf16", "K6 roi_align_bwd"), ("gemm_s8", "int8 GEMM"),
+                 ("gemm_s8", "int8 GEMM"),
                  ("imma", "int8 GEMM"),
                  ("gemm", "matmul/conv"), ("conv", "matmul/conv"), ("xmma", "matmul/conv"),
                  ("cutlass", "matmul/conv"), ("nvjet", "matmul/conv"), ("cudnn", "matmul/conv"))
@@ -1497,7 +1504,9 @@ def path_kernel_rows(rec, call, what):
 def path_align_rows(rec, call, what):
     """One more call of an align path with K5's and K6's inputs recorded
     (the first call of each input shape, after its launch counts were
-    read): each kernel checked against its plain version on them
+    read): K5 must write its crops in the features' (the compute) dtype and
+    K6 get g in it, so a bf16 path holds no float32 crop tensor and casts
+    none; each kernel checked against its plain version on them
     (:func:`check_align`, :func:`check_align_bwd`) and timed on them
     (:func:`align_row`); the rows join the kernel's ``shapes``."""
     import torch
@@ -1506,17 +1515,22 @@ def path_align_rows(rec, call, what):
     with recording(captured, first_of_shape=True):
         call()
         torch.cuda.synchronize()
-    for args, _ in captured.get("roi_align", []):
-        feat, rois, p = args[0], args[1], args[2]
+    for args, out in captured.get("roi_align", []):
+        feat, rois, p, od = args[0], args[1], args[2], args[5]
+        if out.dtype != feat.dtype:
+            raise AssertionError(f"{what}: K5 wrote {out.dtype} crops from {feat.dtype} features")
         shape = (f"{tuple(rois.shape[:2])} P={p} C={feat.shape[-1]} "
                  f"{str(feat.dtype).split('.')[-1]} on {feat.shape[1]}x{feat.shape[2]} "
                  f"({what} inputs)")
         rec["roi_align"]["max_abs_err"] = max(rec["roi_align"]["max_abs_err"],
-                                              check_align(feat, rois, shape, p))
-        rec["roi_align"]["shapes"].append(align_row("K5", shape, feat, rois, out_size=p))
+                                              check_align(feat, rois, shape, p, od))
+        rec["roi_align"]["shapes"].append(align_row("K5", shape, feat, rois, out_size=p,
+                                                    out_dtype=od))
         torch.cuda.empty_cache()
     for args, _ in captured.get("roi_align_bwd", []):
         fshape, fdtype, rois, g, p = args[:5]
+        if g.dtype != fdtype:
+            raise AssertionError(f"{what}: K6 got {g.dtype} g for {fdtype} features")
         feat = torch.empty(fshape, dtype=fdtype, device=g.device)
         shape = (f"{tuple(rois.shape[:2])} P={p} C={fshape[-1]} {str(fdtype).split('.')[-1]} "
                  f"on {fshape[1]}x{fshape[2]} ({what} inputs)")
@@ -2651,51 +2665,144 @@ def align_case(b: int, r: int, seed: int, fh=38, fw=64, c=512):
     return feat, rois
 
 
-def check_align(feat, rois, what, out_size=7):
+def check_align(feat, rois, what, out_size=7, out_dtype=None):
     """K5 against its plain version: bit-equal (the same float32 operations
-    in the same order, none contracted)."""
+    in the same order, none contracted), with float32 output and with
+    bfloat16 output (the float32 mean rounded once: the plain version's
+    float32 result cast to bfloat16), or only in ``out_dtype``."""
     import torch
 
     from trcnn_torch.ops import roi_align
 
-    k = roi_align.roi_align_cuda(feat, rois, out_size)
-    p = roi_align.roi_align_plain(feat, rois, out_size)
-    err = float((k - p).abs().max())
-    if not torch.equal(bits(k), bits(p)):
-        raise AssertionError(f"K5 is not bit-equal to the plain version: {what}, "
-                             f"max abs err {err:.3e}")
-    phase(f"  K5 {what}: bit-equal")
+    ref = roi_align.roi_align_plain(feat, rois, out_size)
+    err = 0.0
+    for od in (torch.float32, torch.bfloat16) if out_dtype is None else (out_dtype,):
+        k = roi_align.roi_align_cuda(feat, rois, out_size, out_dtype=od)
+        if not torch.equal(bits(k), bits(ref.to(od))):
+            raise AssertionError(f"K5 ({str(od)[6:]} output) is not bit-equal to the plain "
+                                 f"version: {what}, max abs err "
+                                 f"{float((k.float() - ref).abs().max()):.3e}")
+        err = max(err, float((k.float() - ref.to(od).float()).abs().max()))
+        del k
+    outs = "float32 and bfloat16" if out_dtype is None else str(out_dtype)[6:]
+    phase(f"  K5 {what}: bit-equal ({outs} output)")
     return err
 
 
 def check_align_bwd(feat, rois, g, what):
-    """K6 twice against its plain version (:func:`bwd_limit`: float32
-    atomics add in a run-dependent order, and K6 merges a bin's samples per
-    cell before it adds); the two kernel runs' largest difference is
-    printed."""
+    """K6 against its plain version (:func:`bwd_limit`: K6 merges a bin's
+    samples per cell and sums in its own order), for g as given and
+    rounded to bfloat16; two calls on the same inputs must be bit-identical
+    (each dfeat element is summed by one thread in a fixed order)."""
+    import torch
+
     from trcnn_torch.ops import roi_align
 
     p_ = g.shape[2]
-    k = roi_align.roi_align_backward_cuda(feat.shape, feat.dtype, rois, g, p_)
-    k2 = roi_align.roi_align_backward_cuda(feat.shape, feat.dtype, rois, g, p_)
-    p = roi_align.roi_align_backward_plain(feat.shape, feat.dtype, rois, g, p_)
-    err = float((k.float() - p.float()).abs().max())
-    rerun = float((k.float() - k2.float()).abs().max())
-    limit = bwd_limit(p)
-    phase(f"  K6 {what}: max abs err {err:.3e} (limit {limit:.3e} at scale "
-          f"{float(p.float().abs().max()):.3e}); two kernel runs differ by {rerun:.3e}")
-    if err > limit:
-        raise AssertionError(f"K6 disagrees with the plain version: {what}")
-    return err
+    worst = 0.0
+    for gd in dict.fromkeys((g.dtype, torch.bfloat16)):
+        gg = g.to(gd)
+        k = roi_align.roi_align_backward_cuda(feat.shape, feat.dtype, rois, gg, p_)
+        k2 = roi_align.roi_align_backward_cuda(feat.shape, feat.dtype, rois, gg, p_)
+        p = roi_align.roi_align_backward_plain(feat.shape, feat.dtype, rois, gg, p_)
+        err = float((k.float() - p.float()).abs().max())
+        limit = bwd_limit(p)
+        same = torch.equal(bits(k), bits(k2))
+        phase(f"  K6 {what}, g {str(gd)[6:]}: max abs err {err:.3e} (limit {limit:.3e} at scale "
+              f"{float(p.float().abs().max()):.3e}); two calls bit-identical: {same}")
+        if err > limit or not same:
+            raise AssertionError(f"K6 disagrees with the plain version or with itself: {what}")
+        worst = max(worst, err)
+        del k, k2, p
+    return worst
 
 
-def align_row(kernel, what, feat, rois, g=None, out_size=7, plain_iters=1):
-    """K5 (g None) or K6 at one shape: the kernel's time, its share of the
-    bound, the plain version's time and the bound from this run's inputs.
-    Bytes: inputs read once, the output written once (K5 float32, K6 in
-    feat's dtype).  Operations: per sample, channel and corner a product of
-    two weights and an add (3), per bin the mean (1 per channel): K5 reads
-    and K6 writes 4 s^2 corners per bin, s = 2."""
+def yardstick_grid(rois, out_size, h, w, spatial_scale=1.0 / 16.0, sampling_ratio=2):
+    """The sample coordinates of the RoIs (B, R, 4) normalised for
+    ``F.grid_sample(align_corners=True)``: (B, R * P*s, P*s, 2), x then y."""
+    import torch
+
+    from trcnn_torch.ops.boxes import ieee_div
+
+    b, r = rois.shape[:2]
+    ps = out_size * sampling_ratio
+    x1, y1, x2, y2 = (rois[..., i] * spatial_scale for i in range(4))
+    bin_w = ieee_div(torch.clamp(x2 - x1, min=1.0), float(out_size))
+    bin_h = ieee_div(torch.clamp(y2 - y1, min=1.0), float(out_size))
+    grid = ieee_div(torch.arange(ps, device=rois.device, dtype=torch.float32) + 0.5,
+                    float(sampling_ratio))
+    sx = (x1[..., None] + grid * bin_w[..., None]) * (2.0 / (w - 1)) - 1.0
+    sy = (y1[..., None] + grid * bin_h[..., None]) * (2.0 / (h - 1)) - 1.0
+    return torch.stack([sx[:, :, None, :].expand(b, r, ps, ps),
+                        sy[:, :, :, None].expand(b, r, ps, ps)], -1).reshape(b, r * ps, ps, 2)
+
+
+def yardstick(feat, rois, out_size, g=None, sampling_ratio=2, chunk=None):
+    """The library yardstick of K5 (g None) or K6: ``F.grid_sample``
+    (bilinear, ``padding_mode="border"``, ``align_corners=True``: the same
+    clipped bilinear samples) then ``F.avg_pool2d(s)``, on NCHW views of
+    feat; the backward is autograd's through both.  Returns its time (CUDA
+    events over back-to-back calls, summed over chunks of ``chunk`` RoIs
+    where given) and its largest difference from the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from trcnn_torch.ops import roi_align
+
+    b, h, w, c = feat.shape
+    r, s = rois.shape[1], sampling_ratio
+    chunk = chunk or r
+    x = feat.permute(0, 3, 1, 2)
+    ms, err = 0.0, 0.0
+    for i in range(0, r, chunk):
+        rc = rois[:, i:i + chunk]
+        grid = yardstick_grid(rc, out_size, h, w, sampling_ratio=s).to(feat.dtype)
+
+        def fwd(xx):
+            return F.avg_pool2d(F.grid_sample(xx, grid, mode="bilinear", padding_mode="border",
+                                              align_corners=True), s)
+
+        if g is None:
+            ms += cuda_time_ms(lambda: fwd(x), warmup=1, iters=3)
+            y = fwd(x).reshape(b, c, rc.shape[1], out_size, out_size).permute(0, 2, 3, 4, 1)
+            err = max(err, float((y.float() - roi_align.roi_align_plain(feat, rc, out_size))
+                                 .abs().max()))
+        else:
+            gc = g[:, i:i + chunk]
+            gy = gc.permute(0, 4, 1, 2, 3).reshape(b, c, -1, out_size)
+            xx = x.detach().requires_grad_()
+            y = fwd(xx)
+            ms += cuda_time_ms(lambda: torch.autograd.grad(y, xx, gy, retain_graph=True),
+                               warmup=1, iters=3)
+        del grid, y
+        torch.cuda.empty_cache()
+    if g is not None:
+        xx = x.detach().requires_grad_()
+        for i in range(0, r, chunk):
+            grid = yardstick_grid(rois[:, i:i + chunk], out_size, h, w,
+                                  sampling_ratio=s).to(feat.dtype)
+            gy = g[:, i:i + chunk].permute(0, 4, 1, 2, 3).reshape(b, c, -1, out_size)
+            F.avg_pool2d(F.grid_sample(xx, grid, mode="bilinear", padding_mode="border",
+                                       align_corners=True), s).backward(gy.to(feat.dtype))
+        want = roi_align.roi_align_backward_plain(feat.shape, feat.dtype, rois, g, out_size)
+        err = float((xx.grad.permute(0, 2, 3, 1).float() - want.float()).abs().max())
+        del xx
+        torch.cuda.empty_cache()
+    return ms, err
+
+
+def align_row(kernel, what, feat, rois, g=None, out_size=7, plain_iters=1, out_dtype=None,
+              library=False, chunk=None):
+    """K5 (g None; output in ``out_dtype``, feat's dtype by default) or K6
+    at one shape: the kernel's time, its share of the bound, the plain
+    version's time, the bound from this run's inputs and, with
+    ``library``, the yardstick's time and largest difference (:func:`yardstick`).
+    Bytes: inputs read once, the output written once (K5 in its output
+    dtype, K6 in feat's).  Operations: per sample, channel and corner a
+    product of two weights and an add (3), per bin the mean (1 per
+    channel): K5 reads and K6 writes 4 s^2 corners per bin, s = 2."""
+    import torch
+
     from trcnn_torch.ops import roi_align
 
     b, h, w, c = feat.shape
@@ -2703,36 +2810,70 @@ def align_row(kernel, what, feat, rois, g=None, out_size=7, plain_iters=1):
     bins = b * r * out_size * out_size
     ops = bins * c * (3.0 * 4 * 4 + 1)
     wu = int(plain_iters > 1)
+    lib_ms = lib_err = None
     if g is None:
-        ms = cuda_time_ms(lambda: roi_align.roi_align_cuda(feat, rois, out_size))
-        plain_ms = cuda_time_ms(lambda: roi_align.roi_align_plain(feat, rois, out_size),
+        od = out_dtype or feat.dtype
+        ms = cuda_time_ms(lambda: roi_align.roi_align_cuda(feat, rois, out_size, out_dtype=od))
+        plain_ms = cuda_time_ms(lambda: roi_align.roi_align_plain(feat, rois, out_size,
+                                                                  out_dtype=od),
                                 warmup=wu, iters=plain_iters)
-        bd = bound(nbytes(feat, rois) + bins * c * 4, ops, F32_OPS)
+        bd = bound(nbytes(feat, rois) + bins * c * torch.empty((), dtype=od).element_size(),
+                   ops, F32_OPS)
+        if library:
+            lib_ms, lib_err = yardstick(feat, rois, out_size, chunk=chunk)
     else:
         ms = cuda_time_ms(lambda: roi_align.roi_align_backward_cuda(
             feat.shape, feat.dtype, rois, g, out_size))
         plain_ms = cuda_time_ms(lambda: roi_align.roi_align_backward_plain(
             feat.shape, feat.dtype, rois, g, out_size), warmup=wu, iters=plain_iters)
         bd = bound(nbytes(rois, g, feat), ops, F32_OPS)
+        if library:
+            lib_ms, lib_err = yardstick(feat, rois, out_size, g)
     share = bd["bound_ms"] / ms * 100
     phase(f"  {kernel} time at {what}: kernel {ms:.4f} ms ({share:.1f}% of bound), plain "
-          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    return dict(shape=what, ms=ms, plain_ms=plain_ms, pct_of_bound=share, **bd)
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})"
+          + ("" if lib_ms is None else
+             f", library (grid_sample + avg_pool2d{', backward' if g is not None else ''}) "
+             f"{lib_ms:.4f} ms, max abs diff from plain {lib_err:.3e}"))
+    return dict(shape=what, ms=ms, plain_ms=plain_ms, pct_of_bound=share, library_ms=lib_ms,
+                library_max_abs_diff=lib_err, **bd)
 
 
 def phase_align_kernels(dev, rec):
-    """K5 and K6 against their plain versions (chunked over RoIs) at the
-    align paths' shapes, with times and bounds: VGG-16 VOC (8, 300) P=7
-    C=512 on 38 x 64 and R101 COCO (8, 1000) P=14 C=1024 on 50 x 84, bf16
-    and f32 feat; K6 at each config's training RoI count (8, 128); the
-    clipped, beyond-the-map, one-cell and sub-cell RoIs of
-    :func:`align_case` in every case; a ragged small case (C = 36, not a
-    multiple of the vector) too."""
+    """K5 and K6 against their plain versions (chunked over RoIs): at every
+    shape of ``tests/test_torch_kernels.py::ALIGN_SHAPES`` (K5 bit-equal with
+    float32 and bfloat16 output, K6 within tolerance with float32 and
+    bfloat16 g and bit-identical on repeat, bf16 and f32 feat); then at the
+    align paths' shapes, with times, bounds and the library yardstick
+    (:func:`yardstick`): VGG-16 VOC (8, 300) P=7 C=512 on 38 x 64 and R101
+    COCO (8, 1000) P=14 C=1024 on 50 x 84, bf16 feat with bf16 output (the
+    bf16 paths' call) and f32 feat with f32 output; K6 at each config's
+    training RoI count (8, 128), with g in feat's dtype; the clipped,
+    beyond-the-map, one-cell and sub-cell RoIs of :func:`align_case` in
+    every case; a ragged small case (C = 36, not a multiple of the
+    vector) too."""
+    import importlib.util
+
     import torch
 
+    # by path: the card's machine may have another top-level "tests" package
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_kernels", Path(__file__).resolve().parent / "tests" / "test_torch_kernels.py")
+    kernel_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kernel_tests)
     phase("RoIAlign kernels (K5 forward, K6 backward) vs plain versions:")
     err5 = err6 = 0.0
     rows5, rows6 = [], []
+    for b, r, h, w, c, p in kernel_tests.ALIGN_SHAPES:
+        rng = np.random.default_rng(r + c)
+        feat = rng.standard_normal((b, h, w, c))
+        rois_t = torch.tensor(kernel_tests._align_rois(rng, b, r, h, w), device=dev)
+        g = torch.tensor(rng.standard_normal((b, r, p, p, c)), dtype=torch.float32, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            feat_t = torch.tensor(feat, dtype=dt, device=dev)
+            shape = f"ALIGN_SHAPES ({b},{r}) P={p} C={c} {h}x{w} {str(dt)[6:]}"
+            err5 = max(err5, check_align(feat_t, rois_t, shape, p))
+            err6 = max(err6, check_align_bwd(feat_t, rois_t, g, shape))
     feat, rois = align_case(2, 37, 80, fh=9, fw=13, c=36)
     rois_t = torch.from_numpy(rois).to(dev)
     g = torch.from_numpy(np.random.default_rng(81).standard_normal(
@@ -2754,20 +2895,23 @@ def phase_align_kernels(dev, rec):
             shape = f"(8,{r}) P={p} C={c} {name}, {what} {fh}x{fw} map"
             err5 = max(err5, check_align(feat_t, rois_t, shape, p))
             torch.cuda.empty_cache()
-            rows5.append(align_row("K5", shape, feat_t, rois_t, out_size=p))
+            # the yardstick's output at R101 COCO is 8 x 1024 x 28000 x 28 samples:
+            # timed in four chunks of 250 RoIs, summed
+            rows5.append(align_row("K5", f"{shape}, {name} output", feat_t, rois_t, out_size=p,
+                                   library=True, chunk=250 if r == 1000 else None))
             torch.cuda.empty_cache()
             shape = f"(8,128) P={p} C={c} {name}, {what} {fh}x{fw} map"
             err6 = max(err6, check_align_bwd(feat_t, rois128, g, shape))
-            rows6.append(align_row("K6", shape, feat_t, rois128, g, p))
-            del feat_t
+            gd = g.to(dt)
+            rows6.append(align_row("K6", f"{shape}, {name} g", feat_t, rois128, gd, p,
+                                   library=True))
+            del feat_t, gd
             torch.cuda.empty_cache()
         del g
-    main = ("ms", "plain_ms", "bound_ms", "bound_by")
+    main = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the records keep the R101 COCO bf16 row: the largest call on a main path
-    rec["roi_align"] = dict(max_abs_err=err5, library_ms=None, shapes=rows5,
-                            **{k: rows5[2][k] for k in main})
-    rec["roi_align_bwd"] = dict(max_abs_err=err6, library_ms=None, shapes=rows6,
-                                **{k: rows6[2][k] for k in main})
+    rec["roi_align"] = dict(max_abs_err=err5, shapes=rows5, **{k: rows5[2][k] for k in main})
+    rec["roi_align_bwd"] = dict(max_abs_err=err6, shapes=rows6, **{k: rows6[2][k] for k in main})
 
 
 def int8_small_model(dev, stem: str, rng):

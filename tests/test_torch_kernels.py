@@ -402,49 +402,59 @@ ALIGN_SHAPES = [(1, 5, 7, 9, 3, 7), (2, 37, 21, 30, 40, 7), (2, 29, 38, 64, 512,
                 (2, 23, 50, 84, 1024, 14), (1, 9, 84, 50, 24, 14)]
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,r,h,w,c,p", ALIGN_SHAPES)
-def test_roi_align_kernel_bit_equal(dev, dtype, b, r, h, w, c, p):
+def test_roi_align_kernel_bit_equal(dev, dtype, out_dtype, b, r, h, w, c, p):
     """K5: bit-equal to the plain version (the same float32 operations in
-    the same order, none contracted), at P=7 and P=14, the VGG and R101
-    widths, the COCO map and its transpose, ragged channel counts (3, 40,
-    24) and an unaligned base; edge-clipped and sub-cell RoIs."""
+    the same order, none contracted; a bfloat16 output the float32 mean
+    rounded once), at P=7 and P=14, the VGG and R101 widths, the COCO map
+    and its transpose, ragged channel counts (3, 40, 24) and an unaligned
+    base; edge-clipped and sub-cell RoIs."""
     rng = np.random.default_rng(r + c)
     feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=dev)
     rois = torch.tensor(_align_rois(rng, b, r, h, w), device=dev)
-    want = roi_align.roi_align_plain(feat, rois, p)
+    want = roi_align.roi_align_plain(feat, rois, p, out_dtype=out_dtype)
+    assert torch.equal(_bits(want),
+                       _bits(roi_align.roi_align_plain(feat, rois, p).to(out_dtype)))
     for f in (feat, _unaligned(feat)):
         before = _build.launch_counts["roi_align"]
-        k = roi_align.roi_align_cuda(f, rois, p)
+        k = roi_align.roi_align_cuda(f, rois, p, out_dtype=out_dtype)
         assert _build.launch_counts["roi_align"] == before + 1
-        assert k.dtype == torch.float32 and torch.equal(_bits(k), _bits(want))
+        assert k.dtype == out_dtype and torch.equal(_bits(k), _bits(want))
 
 
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,r,h,w,c,p", ALIGN_SHAPES)
-def test_roi_align_backward_kernel(dev, dtype, b, r, h, w, c, p):
+def test_roi_align_backward_kernel(dev, dtype, g_dtype, b, r, h, w, c, p):
     """K6 within rounding of the plain version: float32 within 1e-5 of the
-    largest |dfeat|, bf16 within one bf16 ulp of it (float32 atomics add in
-    a run-dependent order, and K6 merges a bin's samples per cell before it
-    adds); autograd through roi_align reaches K5 and K6, and the RoIs get
-    no gradient."""
+    largest |dfeat|, bf16 within one bf16 ulp of it (K6 merges a bin's
+    samples per cell and sums in another order), for float32 and bfloat16
+    g; two calls on the same inputs bit-identical (each dfeat element is
+    summed by one thread in a fixed order); autograd through roi_align
+    with a g_dtype output reaches K5 and K6, and the RoIs get no
+    gradient."""
     rng = np.random.default_rng(r + c + 1)
     feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=dev)
     rois = torch.tensor(_align_rois(rng, b, r, h, w), device=dev)
-    g = torch.tensor(rng.standard_normal((b, r, p, p, c)), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((b, r, p, p, c)), dtype=g_dtype, device=dev)
     want = roi_align.roi_align_backward_plain(feat.shape, dtype, rois, g, p).float()
+    scale = float(want.abs().max())
+    limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
     for gi in (g, _unaligned(g)):
         before = _build.launch_counts["roi_align_bwd"]
         k = roi_align.roi_align_backward_cuda(feat.shape, dtype, rois, gi, p)
         assert _build.launch_counts["roi_align_bwd"] == before + 1
         assert k.dtype == dtype
-        scale = float(want.abs().max())
-        limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
         assert float((k.float() - want).abs().max()) <= limit
+        again = roi_align.roi_align_backward_cuda(feat.shape, dtype, rois, gi, p)
+        assert torch.equal(_bits(again), _bits(k))
     x = feat.clone().requires_grad_()
     r_t = rois.clone().requires_grad_()
     before = dict(_build.launch_counts)
-    out = roi_align.roi_align(x, r_t, p)
+    out = roi_align.roi_align(x, r_t, p, out_dtype=g_dtype)
+    assert out.dtype == g_dtype
     out.backward(g)
     assert _build.launch_counts["roi_align"] == before["roi_align"] + 1
     assert _build.launch_counts["roi_align_bwd"] == before["roi_align_bwd"] + 1

@@ -6,12 +6,15 @@ training step.
 Tolerances, with what was measured:
   * forward: bit-equal to JAX's formulation run operation by operation
     (``jax.disable_jit``, the same float32 products and sums in the same
-    order); within 1e-5 of the largest output against the jitted JAX
-    function, whose fused loops contract or reorder some of them: a
-    sample coordinate that rounds the other way moves its fraction by an
-    ulp of the coordinate (2^-20 on a 13-cell map), and the value by that
-    times the difference of two neighbouring cells (measured 2e-6
-    relative);
+    order), and with ``out_dtype=torch.bfloat16`` bit-equal to that output
+    rounded to bfloat16 (numpy's cast, round to nearest even); within 1e-5
+    of the largest output against the jitted JAX function, whose fused
+    loops contract or reorder some of them: a sample coordinate that
+    rounds the other way moves its fraction by an ulp of the coordinate
+    (2^-20 on a 13-cell map), and the value by that times the difference
+    of two neighbouring cells (measured 2e-6 relative); so in bfloat16
+    within one bf16 ulp of the jitted output cast (at P=14, 7-8 of 21560
+    elements round the other way);
   * backward, float32: within 1e-5 of the largest |dfeat|: the scatter
     adds in another order, and the RoI beyond the map sends all its
     P^2 s^2 samples (784 at P=14) to one cell (measured 3.3e-6);
@@ -32,6 +35,7 @@ Tolerances, with what was measured:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -78,22 +82,42 @@ def _case(seed, b=2, r=11, h=9, w=13, c=5):
     return feat, rois.astype(np.float32)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("p", [7, 14])
-def test_plain_forward_matches_jax(p, dtype):
-    jdt, tdt = DTYPES[dtype]
+@functools.lru_cache(maxsize=None)
+def _jax_forward(p, dtype):
+    """JAX's RoIAlign of ``_case(p)`` in ``dtype``: the jitted function's
+    output and the op-by-op run's, both float32 numpy (one compile and one
+    op-by-op run per case, shared by the output dtypes)."""
+    jdt = DTYPES[dtype][0]
     feat, rois = _case(p)
     jfeat = jnp.asarray(feat).astype(jdt)
     want = np.asarray(roi_align_batched(jfeat, jnp.asarray(rois), out_size=p))
     with jax.disable_jit():
         exact = np.stack([np.asarray(jax_roi_align(jfeat[i], jnp.asarray(rois[i]), out_size=p))
                           for i in range(len(rois))])
-    got = roi_align.roi_align_plain(T(feat).to(tdt), T(rois), p)
-    assert got.dtype == torch.float32 and want.dtype == np.float32
-    np.testing.assert_array_equal(got.numpy(), exact)
-    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    return want, exact
+
+
+@pytest.mark.parametrize("out", list(DTYPES))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("p", [7, 14])
+def test_plain_forward_matches_jax(p, dtype, out):
+    tdt = DTYPES[dtype][1]
+    feat, rois = _case(p)
+    want, exact = _jax_forward(p, dtype)
+    got = roi_align.roi_align_plain(T(feat).to(tdt), T(rois), p, out_dtype=DTYPES[out][1])
+    assert got.dtype == DTYPES[out][1] and want.dtype == np.float32
+    if out == "float32":
+        np.testing.assert_array_equal(got.numpy(), exact)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        # the float32 mean rounded once, as JAX's output cast to bfloat16
+        bits = got.view(torch.int16).numpy()
+        np.testing.assert_array_equal(bits, exact.astype(jnp.bfloat16).view(np.int16))
+        jitted = want.astype(jnp.bfloat16).view(np.int16)
+        assert np.abs(bits.astype(np.int32) - jitted).max() <= 1
     # chunking changes nothing
-    assert torch.equal(roi_align.roi_align_plain(T(feat).to(tdt), T(rois), p, chunk=3), got)
+    assert torch.equal(roi_align.roi_align_plain(T(feat).to(tdt), T(rois), p,
+                                                 out_dtype=DTYPES[out][1], chunk=3), got)
 
 
 def _jax_vjp(feat, rois, g, p, jdt):
@@ -138,6 +162,42 @@ def test_autograd_function_routes_to_the_plain_backward():
     roi_align.roi_align(fb, T(rois), 7).backward(g)
     assert fb.grad.dtype == torch.bfloat16
     assert torch.equal(fb.grad, want.to(torch.bfloat16))
+
+
+def test_bf16_output_gradient_equals_the_cast_route():
+    """roi_align(..., out_dtype=bfloat16) against the float32 output cast
+    to bfloat16 (the heads' route before the output dtype): the same
+    crops and, through autograd, the same bf16 cotangent reaching the
+    backward (the cast's backward upcast it exactly) and the same dfeat."""
+    feat, rois = _case(5)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        rois.shape[:2] + (7, 7, 5)).astype(np.float32)).to(torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        direct = T(feat).to(dt).requires_grad_()
+        cast = T(feat).to(dt).requires_grad_()
+        out = roi_align.roi_align(direct, T(rois), 7, out_dtype=torch.bfloat16)
+        ref = roi_align.roi_align(cast, T(rois), 7).to(torch.bfloat16)
+        assert out.dtype == ref.dtype == torch.bfloat16
+        assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+        out.backward(g)
+        ref.backward(g)
+        assert direct.grad.dtype == dt
+        assert torch.equal(direct.grad, cast.grad)
+
+
+@pytest.mark.parametrize("h,w,c", [(38, 64, 512), (50, 84, 1024), (84, 50, 1024),
+                                   (40, 64, 1024), (300, 90, 512), (9, 13, 36), (7, 9, 3),
+                                   (21, 30, 40), (64, 3000, 2048)])
+def test_backward_plan_fits_every_map(h, w, c):
+    """K6's tiling (``_bwd_plan``): a slab of at most SLAB_BYTES, at most
+    256 threads a block, channel slices that are whole vectors (multiples
+    of 8 on the vector path), tiles within the map that cover it."""
+    for vec in (True, False) if c % 8 == 0 else (False,):
+        v, cc, ty, tx, smem = roi_align._bwd_plan(h, w, c, vec)
+        assert (v in (8, 4, 2) and cc % 8 == 0) if vec else v == 1
+        assert 1 <= cc <= c and -(-cc // v) <= 256 and cc % v == 0
+        assert 1 <= ty <= h and 1 <= tx <= w
+        assert smem == ty * tx * cc * 4 <= max(roi_align.SLAB_BYTES, cc * 4)
 
 
 def test_constant_map_and_linear_ramp():

@@ -156,8 +156,14 @@ class FasterRCNN(nn.Module):
         among n data-parallel ranks, whose masks are rows of the global
         batch's (:meth:`draw_uniforms`)."""
         b, r = rois.shape[:2]
-        pool = roi_align if self.cfg.roi.mode == "align" else roi_max_pool
-        pooled = pool(feat, rois.contiguous(), self.pool_size, self.cfg.roi.spatial_scale)
+        if self.cfg.roi.mode == "align":
+            # the crops in the head's compute dtype: bit-equal to JAX's
+            # float32 crops cast by the head, with no float32 crop tensor
+            pooled = roi_align(feat, rois.contiguous(), self.pool_size,
+                               self.cfg.roi.spatial_scale, out_dtype=self.dtype)
+        else:
+            pooled = roi_max_pool(feat, rois.contiguous(), self.pool_size,
+                                  self.cfg.roi.spatial_scale)
         cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]),
                                          generator, shard)
         return cls_score.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)

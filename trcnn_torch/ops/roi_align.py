@@ -11,31 +11,39 @@ Semantics are the JAX package's, not torchvision's:
   value = v00*(1-fy)*(1-fx) + v01*(1-fy)*fx + v10*fy*(1-fx) + v11*fy*fx
   out[p] = the mean of the bin's s x s samples.
 The corner values are promoted to float32 (the weights are float32), so the
-output is float32 whatever the feature dtype; the heads cast it to the
-compute dtype.  :func:`roi_align_plain` keeps the JAX expression's product
-and sum order (``roi_align.py:80-85``) and sums a bin's samples row by row
+mean is float32 whatever the feature dtype, and that is the default output
+(JAX's contract).  ``out_dtype=torch.bfloat16`` rounds each mean once to
+bfloat16, bit-equal to the float32 output cast: the model asks for its
+compute dtype, so the heads' cast does nothing and no float32 crop tensor
+is made.  :func:`roi_align_plain` keeps the JAX expression's product and
+sum order (``roi_align.py:80-85``) and sums a bin's samples row by row
 before the division, which kernel K5 repeats without FMA contraction.
 
 Backward: each sample sends g / s^2 times its four bilinear weights to its
 four corner cells, accumulated in float32 and rounded once to the feature
-dtype.  (JAX's bf16 gradient rounds every corner's cotangent to bf16 and
-scatter-adds in bf16, so bf16 feature gradients agree with it only
-loosely.)  The RoIs get no gradient: the proposals are detached.
+dtype.  g comes in the output's dtype (a bfloat16 output's cotangent is
+bfloat16, exactly the values its float32 upcast had).  (JAX's bf16 gradient
+rounds every corner's cotangent to bf16 and scatter-adds in bf16, so bf16
+feature gradients agree with it only loosely.)  The RoIs get no gradient:
+the proposals are detached.
 
 ``roi_align`` is a ``torch.autograd.Function``: kernels K5
-(``csrc/roi_align.cu``) and K6 (``csrc/roi_align_bwd.cu``) for CUDA
-tensors, the plain versions for CPU tensors.  Both plain versions run in
-chunks of RoIs, so that the card can replay K5's and K6's full-width calls
-through them.  The JAX package runs RoIAlign in XLA; K5 and K6 are CUDA
-kernels for that computation, not ports of a Pallas kernel: at ResNet-101
-COCO detect (8 x 1000 RoIs, P=14, 1024 channels) each of the plain
-formulation's four corner tensors is 25.7 GB in float32.
+(``csrc/roi_align.cu``) and K6 (``csrc/roi_align_bwd.cu``, tiled by
+:func:`_bwd_plan`) for CUDA tensors, the plain versions for CPU tensors.
+Both plain versions run in chunks of RoIs, so that the card can replay K5's
+and K6's full-width calls through them.  The JAX package runs RoIAlign in
+XLA; K5 and K6 are CUDA kernels for that computation, not ports of a
+Pallas kernel: at ResNet-101 COCO detect (8 x 1000 RoIs, P=14, 1024
+channels) each of the plain formulation's four corner tensors is 25.7 GB in
+float32.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,9 +55,12 @@ from trcnn_torch.ops.boxes import ieee_div
 # channels) one float32 corner tensor of a chunk is 411 MB
 PLAIN_CHUNK = 16
 # the kernels keep a RoI's P * s sample positions per axis in shared memory,
-# and K6 a bin's 2s cells per axis in registers
+# and K6 a bin's 2s cells per axis
 MAX_SAMPLES = 64
 MAX_SAMPLING = 4
+# K5: shared memory of each of its two stage buffers (csrc/roi_align.cu):
+# two blocks share an SM
+STAGE_BYTES = 49152
 
 
 @lru_cache(maxsize=None)
@@ -87,12 +98,14 @@ def _chunks(r: int, chunk: int):
 
 def roi_align_plain(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
                     spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
+                    out_dtype: torch.dtype = torch.float32,
                     chunk: int = PLAIN_CHUNK) -> torch.Tensor:
     """feat (B, H, W, C) float32 or bfloat16, rois (B, R, 4) image
-    coordinates -> (B, R, P, P, C) float32, ``chunk`` RoIs at a time."""
+    coordinates -> (B, R, P, P, C) float32 means, cast to ``out_dtype``,
+    ``chunk`` RoIs at a time."""
     b, h, w, c = feat.shape
     r, s, p = rois.shape[1], sampling_ratio, out_size
-    out = torch.empty((b, r, p, p, c), dtype=torch.float32, device=feat.device)
+    out = torch.empty((b, r, p, p, c), dtype=out_dtype, device=feat.device)
     flat = feat.reshape(b, h * w, c)
     bidx = torch.arange(b, device=feat.device)[:, None, None]
     for i in _chunks(r, chunk):
@@ -124,10 +137,10 @@ def roi_align_backward_plain(feat_shape, feat_dtype, rois: torch.Tensor, g: torc
                              out_size: int = 7, spatial_scale: float = 1.0 / 16.0,
                              sampling_ratio: int = 2, chunk: int = PLAIN_CHUNK
                              ) -> torch.Tensor:
-    """rois (B, R, 4), g (B, R, P, P, C) -> dfeat (B, H, W, C) in
-    ``feat_dtype``: each sample's cotangent g / s^2, times each corner's
-    weights (in the order of JAX's transpose), index-added into a float32
-    dfeat, ``chunk`` RoIs at a time, then rounded once."""
+    """rois (B, R, 4), g (B, R, P, P, C) float32 or bfloat16 -> dfeat
+    (B, H, W, C) in ``feat_dtype``: each sample's cotangent g / s^2, times
+    each corner's weights (in the order of JAX's transpose), index-added
+    into a float32 dfeat, ``chunk`` RoIs at a time, then rounded once."""
     b, h, w, c = feat_shape
     r, s, p = rois.shape[1], sampling_ratio, out_size
     dflat = torch.zeros((b * h * w, c), dtype=torch.float32, device=g.device)
@@ -149,12 +162,16 @@ def roi_align_backward_plain(feat_shape, feat_dtype, rois: torch.Tensor, g: torc
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
+# K6: its dfeat slab per block (four blocks share an SM beside their RoI
+# geometry), its threads per block where the channels allow, its channel
+# slice
+SLAB_BYTES = 36 * 1024
+BWD_THREADS = 256
+BWD_MAX_CC = 1024
 
 
 def _check_rois(what: str, rois: torch.Tensor, b: int, dev: torch.device) -> None:
@@ -174,55 +191,94 @@ def _check_pool(out_size: int, sampling_ratio: int) -> None:
                          f"got P={out_size}, s={sampling_ratio}")
 
 
+def _check_dtype(what: str, dtype: torch.dtype) -> None:
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what} must be float32 or bfloat16, got {dtype}")
+
+
 def roi_align_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
-                   spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2) -> torch.Tensor:
+                   spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel K5: :func:`roi_align_plain` on the card, one block per
-    (image, RoI, bin row)."""
+    (image, RoI) computing from the cells its samples touch, staged in
+    shared memory (read through L1 where they are reused too little)."""
     if feat.dim() != 4 or feat.dtype not in _DTYPE_CODE or not feat.is_contiguous():
         raise ValueError(f"feat must be contiguous float32/bfloat16 (B, H, W, C), "
                          f"got {feat.dtype} {tuple(feat.shape)}")
+    _check_dtype("out_dtype", out_dtype)
     _check_rois("roi_align_cuda", rois, feat.shape[0], feat.device)
     _check_pool(out_size, sampling_ratio)
     b, h, w, c = feat.shape
     r = rois.shape[1]
-    out = torch.empty((b, r, out_size, out_size, c), dtype=torch.float32, device=feat.device)
+    out = torch.empty((b, r, out_size, out_size, c), dtype=out_dtype, device=feat.device)
     if out.numel() == 0:
         return out
     fn = _build.function("roi_align", "trcnn_roi_align_fwd", _FWD_ARGTYPES)
     err = fn(_build.ptr(feat), _build.ptr(rois), b, r, h, w, c, out_size, sampling_ratio,
-             spatial_scale, _DTYPE_CODE[feat.dtype], _build.ptr(out),
-             _build.stream_of(feat.device))
+             spatial_scale, _DTYPE_CODE[feat.dtype], _DTYPE_CODE[out_dtype], STAGE_BYTES,
+             _build.ptr(out), _build.stream_of(feat.device))
     _build.check(err, "trcnn_roi_align_fwd")
     _build.count_launch("roi_align")
     return out
 
 
+class BwdPlan(NamedTuple):
+    """K6's tiling of a map: V channels a thread (8, 4 or 2 on the vector
+    path, 1 off it), cc channels and ty x tx cells a block, and its dynamic
+    shared memory (the slab) in bytes."""
+
+    v: int
+    cc: int
+    ty: int
+    tx: int
+    smem: int
+
+
+@lru_cache(maxsize=None)
+def _bwd_plan(h: int, w: int, c: int, vec: bool) -> BwdPlan:
+    """K6's tiling of an h x w map of c channels.  The vector path (c a
+    multiple of 8, aligned tensors): slices of up to BWD_MAX_CC channels,
+    the widest V that leaves BWD_THREADS threads (else 2); off it one
+    channel a thread, slices of up to BWD_THREADS.  A tile holds as many cells as
+    SLAB_BYTES of float32 slab take, about square (at least one cell), cut
+    to the map."""
+    if vec:
+        cc = min(c, BWD_MAX_CC)
+        v = next(v for v in (8, 4, 2) if cc // v >= BWD_THREADS or v == 2)
+    else:
+        cc, v = min(c, BWD_THREADS), 1
+    cells = max(1, SLAB_BYTES // (cc * 4))
+    side = max(1, math.isqrt(cells))
+    tx = min(w, max(1, cells // side))
+    ty = min(h, max(1, cells // tx))
+    return BwdPlan(v, cc, ty, tx, ty * tx * cc * 4)
+
+
 def roi_align_backward_cuda(feat_shape, feat_dtype, rois: torch.Tensor, g: torch.Tensor,
                             out_size: int = 7, spatial_scale: float = 1.0 / 16.0,
                             sampling_ratio: int = 2) -> torch.Tensor:
-    """Kernel K6: :func:`roi_align_backward_plain` on the card.  float32
-    atomics into a zeroed float32 dfeat (the output itself for float32
-    features, else a scratch that one more pass rounds to ``feat_dtype``):
-    the sums' order changes from run to run."""
+    """Kernel K6: :func:`roi_align_backward_plain` on the card.  One launch
+    writes every element of dfeat, allocated here in ``feat_dtype``, from
+    float32 sums kept in shared memory (tiling from :func:`_bwd_plan`),
+    each element summed by one thread in a fixed order: run to run
+    bit-identical."""
     b, h, w, c = feat_shape
     _check_rois("roi_align_backward_cuda", rois, b, g.device)
     r = rois.shape[1]
-    if (g.dtype != torch.float32 or not g.is_contiguous()
+    if (g.dtype not in _DTYPE_CODE or not g.is_contiguous()
             or tuple(g.shape) != (b, r, out_size, out_size, c)):
-        raise ValueError(f"g must be a contiguous float32 {(b, r, out_size, out_size, c)} "
+        raise ValueError(f"g must be a contiguous float32/bfloat16 {(b, r, out_size, out_size, c)} "
                          f"tensor, got {g.dtype} {tuple(g.shape)}")
-    if feat_dtype not in _DTYPE_CODE:
-        raise ValueError(f"no RoIAlign backward into {feat_dtype}")
+    _check_dtype("feat_dtype", feat_dtype)
     _check_pool(out_size, sampling_ratio)
     dfeat = torch.empty(feat_shape, dtype=feat_dtype, device=g.device)
     if dfeat.numel() == 0:
         return dfeat
-    scratch = dfeat if feat_dtype == torch.float32 else torch.empty(
-        feat_shape, dtype=torch.float32, device=g.device)
+    plan = _bwd_plan(h, w, c, c % 8 == 0 and g.data_ptr() % 16 == 0)
     fn = _build.function("roi_align_bwd", "trcnn_roi_align_bwd", _BWD_ARGTYPES)
     err = fn(_build.ptr(g), _build.ptr(rois), b, r, h, w, c, out_size, sampling_ratio,
-             spatial_scale, _DTYPE_CODE[feat_dtype], _build.ptr(scratch), _build.ptr(dfeat),
-             _build.stream_of(g.device))
+             spatial_scale, _DTYPE_CODE[g.dtype], _DTYPE_CODE[feat_dtype], plan.v, plan.cc,
+             plan.ty, plan.tx, plan.smem, _build.ptr(dfeat), _build.stream_of(g.device))
     _build.check(err, "trcnn_roi_align_bwd")
     _build.count_launch("roi_align_bwd")
     return dfeat
@@ -232,28 +288,29 @@ class _RoIAlign(torch.autograd.Function):
     """K5 / plain forward, K6 / plain backward; no gradient to the RoIs."""
 
     @staticmethod
-    def forward(ctx, feat, rois, out_size, spatial_scale, sampling_ratio):
+    def forward(ctx, feat, rois, out_size, spatial_scale, sampling_ratio, out_dtype):
         ctx.save_for_backward(rois)
         ctx.feat = (tuple(feat.shape), feat.dtype)
         ctx.pool = (out_size, spatial_scale, sampling_ratio)
-        if feat.device.type == "cuda":
-            return roi_align_cuda(feat, rois, *ctx.pool)
-        return roi_align_plain(feat, rois, *ctx.pool)
+        fwd = roi_align_cuda if feat.device.type == "cuda" else roi_align_plain
+        return fwd(feat, rois, *ctx.pool, out_dtype)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (rois,) = ctx.saved_tensors
         bwd = roi_align_backward_cuda if g.device.type == "cuda" else roi_align_backward_plain
-        return bwd(*ctx.feat, rois, g.float().contiguous(), *ctx.pool), None, None, None, None
+        return bwd(*ctx.feat, rois, g.contiguous(), *ctx.pool), None, None, None, None, None
 
 
 def roi_align(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
-              spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2) -> torch.Tensor:
+              spatial_scale: float = 1.0 / 16.0, sampling_ratio: int = 2,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """RoIAlign over a batch: feat (B, H, W, C) NHWC, rois (B, R, 4) ->
-    (B, R, out, out, C) float32, differentiable in feat.  Kernels K5
+    (B, R, out, out, C) in ``out_dtype`` (float32 means, or those means
+    rounded once to bfloat16), differentiable in feat.  Kernels K5
     (forward) and K6 (backward) for CUDA tensors, the plain versions for
     CPU."""
     if feat.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no RoIAlign for device {feat.device}")
-    return _RoIAlign.apply(feat, rois, out_size, spatial_scale, sampling_ratio)
+    return _RoIAlign.apply(feat, rois, out_size, spatial_scale, sampling_ratio, out_dtype)
