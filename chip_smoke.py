@@ -127,6 +127,13 @@ Phases, one line each, any failure raises and exits non-zero:
     ``preprocess_device`` on a 1024x1024 raw buffer (375x500 and 500x375
     images, card against CPU), its canvases through the detect path.
 
+``chip_smoke.py --align-turns PARENT`` runs none of that: it times the
+four RoIAlign paths (VGG-16 VOC and R101 COCO, detect and train, bf16) of
+the tree unpacked at PARENT and of this script's tree in turns (parent,
+this, this, parent), each turn a process of its own importing that tree's
+``trcnn_torch``: host-clock ms, request latency, the device's busy share,
+peak memory and kernel ms by group, one JSON line last.
+
 Before the kernels' JSON record comes the card's name and power limit
 again; the next-to-last line is the record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -1113,15 +1120,7 @@ def profile_window(run, n, what, stages=(), top_all=False):
     if not kernels:
         phase(f"  profile {what}: the profiler saw no device time")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo, hi = busy + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    busy += hi - lo
-    span = max(e for _, e in spans) - spans[0][0]
+    busy, span = kernel_union(kernels)
     groups, other = kernel_split(kernels, n)
     phase(f"  profile {what}, {n} calls: device span {span / 1e3 / n:.3f} ms per call, busy "
           f"{busy / span * 100:.1f}%; kernel ms per call: "
@@ -1137,6 +1136,19 @@ def profile_window(run, n, what, stages=(), top_all=False):
         phase("    largest kernels: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
     if stages:
         phase_split(events, stages, n, sum(groups.values()))
+
+
+def kernel_union(kernels):
+    """(the union of the kernels' intervals, the span from the first one's
+    start to the last one's end), in the profiler's microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return busy + hi - lo, max(e for _, e in spans) - spans[0][0]
 
 
 def kernel_split(kernels, n):
@@ -1635,16 +1647,9 @@ def busy_over(run):
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    if not spans:
+    if not kernels:
         raise AssertionError("the profiler saw no device time")
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo, hi = busy + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    return (busy + hi - lo) / 1e3, wall * 1e3, kernel_split(kernels, 1)[0]
+    return kernel_union(kernels)[0] / 1e3, wall * 1e3, kernel_split(kernels, 1)[0]
 
 
 def phase_weights(dev, tmp):
@@ -4277,11 +4282,167 @@ def phase_dryrun(dev):
           + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
 
 
+
+# ------------------------------------------------- align paths in turns
+
+
+def turn_profile(run, n: int) -> dict:
+    """``run`` n times under torch.profiler: the device's busy share of the
+    host-clock time of the n calls, and kernel ms per call by group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("the profiler saw no device time")
+    busy, span = kernel_union(kernels)
+    groups = kernel_split(kernels, n)[0]
+    return {"busy_of_wall_pct": busy / wall_us * 100, "busy_of_span_pct": busy / span * 100,
+            "kernel_ms": {k: round(v, 4) for k, v in sorted(groups.items())}}
+
+
+def turn_path(dev, call, request=None, n: int = 8) -> dict:
+    """One path of a turn: the median host-clock ms of ``n`` calls (and of
+    ``request``'s, if given), the profile of 3 calls, the peak device
+    memory over all of them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"ms": host_ms(call, n)}
+    if request is not None:
+        out["request_ms"] = host_ms(request, n)
+    out.update(turn_profile(call, 3))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def align_turn(root: str) -> dict:
+    """The four align paths of the ``trcnn_torch`` package under ``root``
+    (VGG-16 VOC detect and train, R101 COCO detect and train, bf16, the
+    seeds of :func:`phase_slice`, :func:`phase_train`,
+    :func:`phase_coco_detect` and :func:`phase_coco_train`), each
+    :func:`turn_path`."""
+    import torch
+
+    import trcnn_torch
+    from trcnn_torch.config import voc_config
+    from trcnn_torch.data import DetectionLoader, SyntheticDetection
+    from trcnn_torch.entry import entry, train_entry
+    from trcnn_torch.train.step import device_batch
+
+    pkg = Path(trcnn_torch.__file__).resolve().parent
+    if pkg.parent != Path(root).resolve():
+        raise AssertionError(f"imported trcnn_torch from {pkg}, not from {root}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    res = {}
+
+    cfg = with_mode(voc_config(), "align")
+    fn, (model, image, im_info) = entry(dev, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    request = torch.randint(0, 256, image.shape, dtype=torch.uint8, generator=gen, device=dev)
+    images8 = torch.randint(0, 256, (8,) + image.shape[1:], dtype=torch.uint8, generator=gen,
+                            device=dev)
+    im_info8 = im_info.expand(8, 3).contiguous()
+    check_dets(fn(model, images8, im_info8), 8)
+    res["VGG-16 VOC align detect b=8"] = turn_path(
+        dev, lambda: fn(model, images8, im_info8), lambda: fn(model, request, im_info))
+    del model, fn
+    torch.cuda.empty_cache()
+
+    step_fn, (state, batch) = train_entry(dev, cfg=cfg)
+    check_step(step_fn(state, batch), 0)
+    res["VGG-16 VOC align train b=8"] = turn_path(dev, lambda: step_fn(state, batch), n=6)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    cfg = coco_cfg("resnet101", "align")
+    fn, (model, image, im_info) = entry(dev, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    images8 = torch.randint(0, 256, (8,) + image.shape[1:], dtype=torch.uint8, generator=gen,
+                            device=dev)
+    im_info8 = im_info.expand(8, 3).contiguous()
+    calibrate(model, images8[:2], im_info8[:2], head=True)
+    check_dets(fn(model, images8, im_info8), 8)
+    res["R101 COCO align detect b=8"] = turn_path(
+        dev, lambda: fn(model, images8, im_info8), lambda: fn(model, image, im_info), n=5)
+    del model, fn
+    torch.cuda.empty_cache()
+
+    step_fn, (state, _) = train_entry(dev, cfg=cfg)
+    loader = DetectionLoader(SyntheticDetection(n=16, num_classes=cfg.num_classes, seed=5),
+                             batch_size=8, image_cfg=cfg.image, augment=True, shuffle=True,
+                             seed=1, uint8_images=True)
+    batch = [device_batch(b, dev) for b in loader][1]
+    check_step(step_fn(state, batch), 0)
+    res["R101 COCO align train b=8"] = turn_path(dev, lambda: step_fn(state, batch), n=5)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return res
+
+
+def align_turns_main(parent: str) -> int:
+    """``chip_smoke.py --align-turns PARENT``: the four align paths of the
+    tree at PARENT (an unpacked checkout) and of this script's tree, in
+    turns (parent, this, this, parent), each turn a process of its own
+    (``--align-turn ROOT``) on the card; prints each path's numbers by turn
+    as a table and, last, all of them as one JSON line."""
+    here = str(Path(__file__).resolve().parent)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    phase(f"align paths in turns on {card}: parent {parent}, this tree {here}")
+    turns = []
+    for who, root in (("parent", parent), ("this", here), ("this", here),
+                      ("parent", parent)):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, __file__, "--align-turn", root],
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+        if run.returncode != 0 or not lines:
+            print(run.stdout[-4000:] + run.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"the {who} turn failed (exit {run.returncode})")
+        turns.append({"tree": who, "seconds": round(time.perf_counter() - t0, 1),
+                      "paths": json.loads(lines[-1])})
+        phase(f"  turn {len(turns)} ({who}) done in {turns[-1]['seconds']} s")
+    for path in turns[0]["paths"]:
+        phase(f"{path}:")
+        for i, t in enumerate(turns):
+            r = t["paths"][path]
+            phase(f"  turn {i + 1} {t['tree']:6s} {r['ms']:.2f} ms"
+                  + (f", request {r['request_ms']:.2f} ms" if "request_ms" in r else "")
+                  + f", busy {r['busy_of_wall_pct']:.1f}% of the host clock "
+                  f"({r['busy_of_span_pct']:.1f}% of the device span), peak "
+                  f"{r['peak_gib']:.2f} GiB; kernels "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["kernel_ms"].items(),
+                                                                key=lambda kv: -kv[1])))
+    print(json.dumps({"card": card, "turns": turns}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--align-turn"]:
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        import torch
+
+        print(json.dumps(align_turn(sys.argv[2])))
+        return 0
     import torch
 
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank_main(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--align-turns"]:
+        return align_turns_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)

@@ -399,7 +399,8 @@ def _align_rois(rng, b, r, h, w):
 
 
 ALIGN_SHAPES = [(1, 5, 7, 9, 3, 7), (2, 37, 21, 30, 40, 7), (2, 29, 38, 64, 512, 7),
-                (2, 23, 50, 84, 1024, 14), (1, 9, 84, 50, 24, 14)]
+                (2, 23, 50, 84, 1024, 14), (1, 9, 84, 50, 24, 14), (1, 11, 21, 30, 768, 7),
+                (1, 13, 17, 25, 520, 14)]
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

@@ -72,7 +72,10 @@ constexpr int kBandChannels = 64;  // channels a band's stages take at least, wh
 // on VGG-16's and R101's RoIs (PERF.md), where blocks below it read their
 // corners through L1 faster than they could stage them
 constexpr int kMinReuse = 8;
-constexpr int kMinStageBytes = 16384;  // 2s rows x 2Ps columns x 16 bytes at s <= 4
+// shared memory of each of the two stage buffers: two blocks share an SM
+constexpr int kStageBytes = 49152;
+// a band holds at least one bin row: 2s rows x 2Ps columns x 16 bytes at s <= 4
+static_assert(kStageBytes >= 2 * kMaxS * 2 * kMaxSamples * 16, "stage too small");
 
 // A sample along one axis: its floor and next cell as indices into the
 // axis's list of touched cells, and its fraction.
@@ -202,9 +205,10 @@ __device__ __forceinline__ void bin_mean(const AxisSample* ys, const AxisSample*
 template <typename T, typename O, int V, int kS>
 __global__ void __launch_bounds__(kThreads)
     roi_align_fwd_kernel(const T* __restrict__ feat, const float* __restrict__ rois, int R,
-                         int H, int W, int C, int P, int S_arg, float scale, int stage_elems,
+                         int H, int W, int C, int P, int S_arg, float scale,
                          O* __restrict__ out) {
   const int S = kS ? kS : S_arg;
+  constexpr int stage_elems = kStageBytes / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Sample raw[2][kMaxSamples];
   __shared__ AxisSample xs[kMaxSamples], ys[kMaxSamples];
@@ -328,10 +332,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename O, int V, int kS>
 cudaError_t launch(const void* feat, const float* rois, int B, int R, int H, int W, int C, int P,
-                   int S, float scale, int stage_bytes, void* out,
-                   cudaStream_t stream) {
+                   int S, float scale, void* out, cudaStream_t stream) {
   auto kernel = roi_align_fwd_kernel<T, O, V, kS>;
-  const int smem = 2 * stage_bytes;
+  constexpr int smem = 2 * kStageBytes;
   // the kernel's shared-memory limit on each device, raised when a launch
   // needs more than the last one set
   static int smem_set[64] = {};
@@ -344,62 +347,54 @@ cudaError_t launch(const void* feat, const float* rois, int B, int R, int H, int
     if (dev < 64) smem_set[dev] = smem;
   }
   kernel<<<dim3(R, B), kThreads, smem, stream>>>(static_cast<const T*>(feat), rois, R, H, W, C,
-                                                 P, S, scale, stage_bytes / (int)sizeof(T),
-                                                 static_cast<O*>(out));
+                                                 P, S, scale, static_cast<O*>(out));
   return cudaGetLastError();
 }
 
 template <typename T, typename O, int V>
 cudaError_t launch_s(const void* feat, const float* rois, int B, int R, int H, int W, int C,
-                     int P, int S, float scale, int stage_bytes, void* out,
-                     cudaStream_t stream) {
-  return S == 2 ? launch<T, O, V, 2>(feat, rois, B, R, H, W, C, P, S, scale, stage_bytes, out,
-                                     stream)
-                : launch<T, O, V, 0>(feat, rois, B, R, H, W, C, P, S, scale, stage_bytes, out,
-                                     stream);
+                     int P, int S, float scale, void* out, cudaStream_t stream) {
+  return S == 2 ? launch<T, O, V, 2>(feat, rois, B, R, H, W, C, P, S, scale, out, stream)
+                : launch<T, O, V, 0>(feat, rois, B, R, H, W, C, P, S, scale, out, stream);
 }
 
 // 16-byte channel vectors where both bases are aligned and C is a multiple
 // of the vector, else one channel an item.
 template <typename T, typename O>
 cudaError_t dispatch(const void* feat, const float* rois, int B, int R, int H, int W, int C,
-                     int P, int S, float scale, int stage_bytes, void* out,
-                     cudaStream_t stream) {
+                     int P, int S, float scale, void* out, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   return aligned16(feat) && aligned16(out) && C % V == 0
-             ? launch_s<T, O, V>(feat, rois, B, R, H, W, C, P, S, scale, stage_bytes, out, stream)
-             : launch_s<T, O, 1>(feat, rois, B, R, H, W, C, P, S, scale, stage_bytes, out,
-                                 stream);
+             ? launch_s<T, O, V>(feat, rois, B, R, H, W, C, P, S, scale, out, stream)
+             : launch_s<T, O, 1>(feat, rois, B, R, H, W, C, P, S, scale, out, stream);
 }
 
 }  // namespace
 
 // feat (B, H, W, C) float32 (dtype 0) or bfloat16 (dtype 1); rois (B, R, 4)
 // float32 image coordinates; out (B, R, P, P, C) float32 (out_dtype 0) or
-// bfloat16 (out_dtype 1).  P * S <= 64, S <= 4; stage_bytes, a multiple of
-// 16 from 16384 to 116224, is each of the two stage buffers' shared memory.
+// bfloat16 (out_dtype 1).  P * S <= 64, S <= 4.
 extern "C" cudaError_t trcnn_roi_align_fwd(const void* feat, const float* rois, int B, int R,
                                            int H, int W, int C, int P, int S,
                                            float spatial_scale, int dtype, int out_dtype,
-                                           int stage_bytes, void* out, cudaStream_t stream) {
+                                           void* out, cudaStream_t stream) {
   if (P * S > kMaxSamples || P < 1 || S < 1 || S > kMaxS || B > 65535 || B < 1 || R < 1 ||
-      H < 1 || W < 1 || C < 1 || stage_bytes < kMinStageBytes || stage_bytes % 16 != 0 ||
-      stage_bytes > 116224 || dtype < 0 || dtype > 1 || out_dtype < 0 || out_dtype > 1) {
+      H < 1 || W < 1 || C < 1 || dtype < 0 || dtype > 1 || out_dtype < 0 || out_dtype > 1) {
     return cudaErrorInvalidValue;
   }
   switch (dtype * 2 + out_dtype) {
     case 0:
-      return dispatch<float, float>(feat, rois, B, R, H, W, C, P, S, spatial_scale, stage_bytes,
-                                    out, stream);
+      return dispatch<float, float>(feat, rois, B, R, H, W, C, P, S, spatial_scale, out,
+                                    stream);
     case 1:
-      return dispatch<float, __nv_bfloat16>(feat, rois, B, R, H, W, C, P, S, spatial_scale,
-                                            stage_bytes, out, stream);
+      return dispatch<float, __nv_bfloat16>(feat, rois, B, R, H, W, C, P, S, spatial_scale, out,
+                                            stream);
     case 2:
-      return dispatch<__nv_bfloat16, float>(feat, rois, B, R, H, W, C, P, S, spatial_scale,
-                                            stage_bytes, out, stream);
+      return dispatch<__nv_bfloat16, float>(feat, rois, B, R, H, W, C, P, S, spatial_scale, out,
+                                            stream);
     case 3:
       return dispatch<__nv_bfloat16, __nv_bfloat16>(feat, rois, B, R, H, W, C, P, S,
-                                                    spatial_scale, stage_bytes, out, stream);
+                                                    spatial_scale, out, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -31,21 +31,29 @@
 // then costs one add per distinct (row, column) pair in the tile: 4 to 9 on
 // real proposals instead of 16.
 //
-// Each thread owns V channels (8, 4 or 2 on the vector path, chosen so that
-// the block has about 256 threads; one for C not a multiple of 8 or an
-// unaligned base) of every cell of the tile, walks the touching RoIs, their
-// touching bin rows and columns and the bin's cells in one fixed order,
-// loads g for four bins at a time and adds with plain shared-memory loads
-// and stores.  Each slab element is thus summed by one thread in that
-// order: K6 is run-to-run bit-identical and needs no shared-memory atomic
-// (a compare-and-swap loop on this card: K4's header).  The threads' vectors
-// are consecutive in the slab (for V = 8, two 16-byte halves, each one
-// contiguous over the threads), so a warp's accesses hit no bank twice.
+// Each thread owns V channels (4 or 2 on the vector path: the narrowest V
+// that keeps the block at 256 threads or fewer; one for C not a multiple
+// of 8 or an unaligned base) of every cell of the tile, walks the touching
+// RoIs, their touching bin rows and columns and the bin's cells in one
+// fixed order, loads g for four bins at a time and adds with plain
+// shared-memory loads and stores.  Each slab element is thus summed by one
+// thread in that order: K6 is run-to-run bit-identical and needs no
+// shared-memory atomic (a compare-and-swap loop on this card: K4's header).
+// The threads' vectors are consecutive in the slab, so a warp's accesses
+// hit no bank twice.
+//
+// Arithmetic: g / s^2 as in the plain version; each add is the rounded
+// product of that and the cell's merged weight wx * wy, then the rounded
+// sum (__fmul_rn, __fadd_rn: no FMA, and the build does not pass
+// --use_fast_math).  The merged weights and the per-thread order are not
+// the plain version's index_add order, so K6 is within tolerance of it
+// (one bf16 ulp of the largest dfeat, 1e-5 of it in float32), not
+// bit-equal.
 //
 // What bounds it on the card: at R101 COCO train b=8 (128 RoIs, P=14,
 // C=1024, bf16) g is 0.41 GB and dfeat 0.07 GB, 0.14 ms at 3.35 TB/s, and the
 // bound's 49 operations per g element (the forward's count) 0.15 ms at 67
-// TFLOP/s.  What holds it above (0.77 ms on an H100 80GB HBM3 at 700 W,
+// TFLOP/s.  What holds it above (0.79 ms on an H100 80GB HBM3 at 700 W,
 // PERF.md): each warp of a block walks the same bins for its own channels,
 // so the walk's loads of bin geometry and its loop control are paid once
 // per warp and per tile that a bin touches (a 3 x 3 tile at C = 1024: a bin
@@ -108,17 +116,6 @@ __device__ void bin_cells(float start, float bin, const float* grid, int j0, int
   a.n = m;
 }
 
-// Slab offset of channel ch of a cell.  V = 8: a thread's two 4-channel
-// halves lie cc / 2 apart, each half contiguous over the threads.
-template <int V>
-__device__ __forceinline__ int chan_off(int ch, int cc) {
-  if constexpr (V == 8) {
-    return ((ch >> 3) << 2) + ((ch >> 2) & 1) * (cc >> 1) + (ch & 3);
-  } else {
-    return ch;
-  }
-}
-
 template <typename T, int V>
 __device__ __forceinline__ void load_g(const T* p, float (&f)[V]) {
   if constexpr (V == 1) {
@@ -127,21 +124,15 @@ __device__ __forceinline__ void load_g(const T* p, float (&f)[V]) {
     } else {
       f[0] = __bfloat162float(__ldg(reinterpret_cast<const __nv_bfloat16*>(p)));
     }
-  } else if constexpr (sizeof(T) == 4 && V >= 4) {
-#pragma unroll
-    for (int k = 0; k < V; k += 4) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p + k));
-      f[k] = v.x, f[k + 1] = v.y, f[k + 2] = v.z, f[k + 3] = v.w;
-    }
+  } else if constexpr (sizeof(T) == 4 && V == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
   } else if constexpr (sizeof(T) == 4) {
     const float2 v = __ldg(reinterpret_cast<const float2*>(p));
     f[0] = v.x, f[1] = v.y;
   } else {
     unsigned w[V / 2];
-    if constexpr (V == 8) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-    } else if constexpr (V == 4) {
+    if constexpr (V == 4) {
       const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
       w[0] = u.x, w[1] = u.y;
     } else {
@@ -155,28 +146,24 @@ __device__ __forceinline__ void load_g(const T* p, float (&f)[V]) {
   }
 }
 
-// slab[cell] += gv * w over the thread's V channels (their offsets from
-// chan_off: 4-float groups for V >= 4).
+// slab[cell] += gv * w over the thread's V consecutive channels, the
+// product and the sum each rounded (no FMA, as in the plain version).
 template <int V>
-__device__ __forceinline__ void add_cell(float* s, const float (&gv)[V], float w, int cc) {
-  if constexpr (V >= 4) {
-#pragma unroll
-    for (int h = 0; h < V / 4; ++h) {
-      float4* p = reinterpret_cast<float4*>(s + h * (cc >> 1));
-      float4 cur = *p;
-      cur.x = __fmaf_rn(gv[4 * h], w, cur.x);
-      cur.y = __fmaf_rn(gv[4 * h + 1], w, cur.y);
-      cur.z = __fmaf_rn(gv[4 * h + 2], w, cur.z);
-      cur.w = __fmaf_rn(gv[4 * h + 3], w, cur.w);
-      *p = cur;
-    }
+__device__ __forceinline__ void add_cell(float* s, const float (&gv)[V], float w) {
+  if constexpr (V == 4) {
+    float4 cur = *reinterpret_cast<float4*>(s);
+    cur.x = __fadd_rn(cur.x, __fmul_rn(gv[0], w));
+    cur.y = __fadd_rn(cur.y, __fmul_rn(gv[1], w));
+    cur.z = __fadd_rn(cur.z, __fmul_rn(gv[2], w));
+    cur.w = __fadd_rn(cur.w, __fmul_rn(gv[3], w));
+    *reinterpret_cast<float4*>(s) = cur;
   } else if constexpr (V == 2) {
     float2 cur = *reinterpret_cast<float2*>(s);
-    cur.x = __fmaf_rn(gv[0], w, cur.x);
-    cur.y = __fmaf_rn(gv[1], w, cur.y);
+    cur.x = __fadd_rn(cur.x, __fmul_rn(gv[0], w));
+    cur.y = __fadd_rn(cur.y, __fmul_rn(gv[1], w));
     *reinterpret_cast<float2*>(s) = cur;
   } else {
-    s[0] = __fmaf_rn(gv[0], w, s[0]);
+    s[0] = __fadd_rn(s[0], __fmul_rn(gv[0], w));
   }
 }
 
@@ -246,7 +233,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int per = 2 * P;  // a RoI's bin axes: P rows, then P columns
   const int chunk = kGeomEntries / per;
   const TG* gb = g + (size_t)b * R * P * P * C + c0 + tid * V;
-  float* own = slab + chan_off<V>(tid * V, cc);
+  float* own = slab + tid * V;
 
   for (int R0 = 0; R0 < R; R0 += kRoiChunk) {
     const int nR = min(kRoiChunk, R - R0);
@@ -329,7 +316,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
                 for (int q = 0; q < kCells; ++q) {
                   if (q >= nq) break;
-                  add_cell<V>(srow + xo[q], gv, __fmul_rn(xw[q], wy), cc);
+                  add_cell<V>(srow + xo[q], gv, __fmul_rn(xw[q], wy));
                 }
               }
             }
@@ -351,10 +338,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
     for (int q = 0; q < WV; q += (WV >= 4 ? 4 : 1)) {
       if constexpr (WV >= 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src + chan_off<V>(k * WV + q, cc));
+        const float4 v = *reinterpret_cast<const float4*>(src + k * WV + q);
         f[q] = v.x, f[q + 1] = v.y, f[q + 2] = v.z, f[q + 3] = v.w;
       } else {
-        f[q] = src[chan_off<V>(k * WV + q, cc)];
+        f[q] = src[k * WV + q];
       }
     }
     store_vec<TD, WV, false>(
@@ -368,7 +355,7 @@ cudaError_t launch(const void* g, const float* rois, int B, int R, int H, int W,
                    cudaStream_t stream) {
   auto kernel = roi_align_bwd_kernel<TG, TD, V, kS>;
   const int threads = (cc + V - 1) / V;
-  if (cc < 1 || cc % V != 0 || (V == 8 && cc % 8 != 0) || threads > kMaxThreads || ty < 1 ||
+  if (cc < 1 || cc % V != 0 || threads > kMaxThreads || ty < 1 ||
       tx < 1 || (size_t)smem_bytes < (size_t)ty * tx * cc * sizeof(float) ||
       2 * P > kGeomEntries)
     return cudaErrorInvalidValue;
@@ -399,7 +386,7 @@ cudaError_t launch_s(const void* g, const float* rois, int B, int R, int H, int 
                                        smem_bytes, dfeat, stream);
 }
 
-// The vector path (V = 8, 4 or 2 channels a thread and 16-byte dfeat
+// The vector path (V = 4 or 2 channels a thread and 16-byte dfeat
 // stores) takes C and cc multiples of 8 and 16-byte aligned bases.
 template <typename TG, typename TD>
 cudaError_t dispatch(const void* g, const float* rois, int B, int R, int H, int W, int C, int P,
@@ -408,9 +395,6 @@ cudaError_t dispatch(const void* g, const float* rois, int B, int R, int H, int 
   if (V > 1 && (C % 8 != 0 || cc % 8 != 0 || !aligned16(g) || !aligned16(dfeat)))
     return cudaErrorInvalidValue;
   switch (V) {
-    case 8:
-      return launch_s<TG, TD, 8>(g, rois, B, R, H, W, C, P, S, scale, cc, ty, tx, smem_bytes,
-                                 dfeat, stream);
     case 4:
       return launch_s<TG, TD, 4>(g, rois, B, R, H, W, C, P, S, scale, cc, ty, tx, smem_bytes,
                                  dfeat, stream);
@@ -430,7 +414,7 @@ cudaError_t dispatch(const void* g, const float* rois, int B, int R, int H, int 
 // g (B, R, P, P, C) float32 (g_dtype 0) or bfloat16 (1); rois (B, R, 4)
 // float32 image coordinates; dfeat (B, H, W, C) float32 (dtype 0) or
 // bfloat16 (1), every element written.  The plan (ops/roi_align.py
-// _bwd_plan): V channels a thread (8, 4 or 2: the vector path; or 1), cc
+// _bwd_plan): V channels a thread (4 or 2: the vector path; or 1), cc
 // channels and ty x tx cells a block, smem_bytes >= ty * tx * cc * 4 of
 // dynamic shared memory.  P * S <= 64 and S <= 4.
 extern "C" cudaError_t trcnn_roi_align_bwd(const void* g, const float* rois, int B, int R, int H,

@@ -58,9 +58,6 @@ PLAIN_CHUNK = 16
 # and K6 a bin's 2s cells per axis
 MAX_SAMPLES = 64
 MAX_SAMPLING = 4
-# K5: shared memory of each of its two stage buffers (csrc/roi_align.cu):
-# two blocks share an SM
-STAGE_BYTES = 49152
 
 
 @lru_cache(maxsize=None)
@@ -163,7 +160,7 @@ def roi_align_backward_plain(feat_shape, feat_dtype, rois: torch.Tensor, g: torc
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
     ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
 # K6: its dfeat slab per block (four blocks share an SM beside their RoI
@@ -215,15 +212,15 @@ def roi_align_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
         return out
     fn = _build.function("roi_align", "trcnn_roi_align_fwd", _FWD_ARGTYPES)
     err = fn(_build.ptr(feat), _build.ptr(rois), b, r, h, w, c, out_size, sampling_ratio,
-             spatial_scale, _DTYPE_CODE[feat.dtype], _DTYPE_CODE[out_dtype], STAGE_BYTES,
-             _build.ptr(out), _build.stream_of(feat.device))
+             spatial_scale, _DTYPE_CODE[feat.dtype], _DTYPE_CODE[out_dtype], _build.ptr(out),
+             _build.stream_of(feat.device))
     _build.check(err, "trcnn_roi_align_fwd")
     _build.count_launch("roi_align")
     return out
 
 
 class BwdPlan(NamedTuple):
-    """K6's tiling of a map: V channels a thread (8, 4 or 2 on the vector
+    """K6's tiling of a map: V channels a thread (4 or 2 on the vector
     path, 1 off it), cc channels and ty x tx cells a block, and its dynamic
     shared memory (the slab) in bytes."""
 
@@ -238,13 +235,13 @@ class BwdPlan(NamedTuple):
 def _bwd_plan(h: int, w: int, c: int, vec: bool) -> BwdPlan:
     """K6's tiling of an h x w map of c channels.  The vector path (c a
     multiple of 8, aligned tensors): slices of up to BWD_MAX_CC channels,
-    the widest V that leaves BWD_THREADS threads (else 2); off it one
+    the narrowest V that needs at most BWD_THREADS threads; off it one
     channel a thread, slices of up to BWD_THREADS.  A tile holds as many cells as
     SLAB_BYTES of float32 slab take, about square (at least one cell), cut
     to the map."""
     if vec:
         cc = min(c, BWD_MAX_CC)
-        v = next(v for v in (8, 4, 2) if cc // v >= BWD_THREADS or v == 2)
+        v = next(v for v in (2, 4) if -(-cc // v) <= BWD_THREADS)
     else:
         cc, v = min(c, BWD_THREADS), 1
     cells = max(1, SLAB_BYTES // (cc * 4))
