@@ -22,7 +22,12 @@ Phases, one line each, any failure raises and exits non-zero:
    residual branches are live): the detections must agree; one training
    forward with the same sampling draws must make the same sampling
    decisions and losses, and one training step (forward, backward,
-   update) the same gradients and parameters within tolerance;
+   update) the same gradients and parameters within tolerance; then the
+   same in bf16 compute (detect after ``cast_params_for_inference``, and
+   one training step with float32 parameters) at the limits
+   ``tests/test_torch_bf16.py`` derives, each discrete difference within
+   its decision's margin (``tests/bf16_limits.py``), the largest
+   differences printed in bf16 ulps;
 5. the main paths at full width, VOC, seeded weights, bf16 with float32
    master weights, uint8 608x1024 canvases, each with the launch counters
    set to 0 before it and read after it, for VGG-16 and then ResNet-101-C4:
@@ -877,6 +882,27 @@ def small_model(backbone: str, cfg, seed: int, images, info, head: bool):
     return model
 
 
+def small_case(backbone: str, mode: str):
+    """The small detect case of :func:`phase_small_parity`: the config, the
+    float32 CPU model with its seeded weights, the images, im_info and the
+    score threshold (VGG-16: uint8 images, the init's head, 0.02;
+    ResNet-101: real-valued images, outputs spread, the config's)."""
+    import torch
+
+    from trcnn_torch.models import make_model
+
+    cfg = with_mode(small_cfg(backbone), mode)
+    rng = np.random.default_rng(42)
+    if backbone == "vgg16":
+        cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(42))
+        images = torch.from_numpy(rng.uniform(0, 256, (2, 64, 96, 3)).astype(np.uint8))
+        info = torch.tensor([[60.0, 90.0, 1.2], [64.0, 80.0, 1.0]])
+        return cfg, cpu, images, info, 0.02
+    images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
+    info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
+    return cfg, small_model(backbone, cfg, 21, images, info, head=True), images, info, None
+
+
 def phase_small_parity(dev, backbone: str, mode: str = "max"):
     """The small detect config through the port on the card and on the CPU
     with the same seeded weights, float32: VGG-16 on uint8 images with the
@@ -887,18 +913,8 @@ def phase_small_parity(dev, backbone: str, mode: str = "max"):
 
     from trcnn_torch.models import make_model, postprocess
 
-    cfg = with_mode(small_cfg(backbone), mode)
-    rng = np.random.default_rng(42)
-    if backbone == "vgg16":
-        cpu = make_model(cfg, device="cpu").init(torch.Generator().manual_seed(42)).eval()
-        images = torch.from_numpy(rng.uniform(0, 256, (2, 64, 96, 3)).astype(np.uint8))
-        info = torch.tensor([[60.0, 90.0, 1.2], [64.0, 80.0, 1.0]])
-        thresh = 0.02
-    else:
-        images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
-        info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
-        cpu = small_model(backbone, cfg, 21, images, info, head=True).eval()
-        thresh = None
+    cfg, cpu, images, info, thresh = small_case(backbone, mode)
+    cpu.eval()
     gpu = make_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict())
     gpu.eval()
@@ -921,6 +937,104 @@ def phase_small_parity(dev, backbone: str, mode: str = "max"):
     if backbone == "resnet101" and int(ref.valid.sum()) <= 3:
         raise AssertionError(f"{what}: degenerate, {int(ref.valid.sum())} detections")
     phase(f"{what}: card == CPU plain path, {int(ref.valid.sum())} detections")
+
+
+def bf16_limits():
+    """tests/bf16_limits.py, loaded by path (the card's machine may have
+    another top-level "tests" package): the bf16 limits and decision
+    margins that tests/test_torch_bf16.py derives and holds the port to
+    against JAX on the CPU."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bf16_limits", Path(__file__).resolve().parent / "tests" / "bf16_limits.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# bf16 rounding points from the canvas to the RPN tensors and to cls_score
+# (tests/test_torch_bf16.py: VGG-16 stem 4 + trunk 20 + RPN or head 4;
+# ResNet-101 conv1 + FrozenBN 3, 30 bottlenecks of 10, RPN 4, res5 + mean 31)
+BF16_ROUNDINGS = {"vgg16": (28, 28), "resnet101": (307, 334)}
+
+
+def detect_stages(model, images, info, thresh_cfg):
+    """One detect on ``model``'s device: the RPN tensors, the raw outputs,
+    cls_score and the detections, as CPU numpy; and the callables
+    ``compare_detect`` reruns the head and the epilogue with."""
+    import torch
+
+    from trcnn_torch.models import postprocess
+    from trcnn_torch.models.faster_rcnn import RawDetections
+    from trcnn_torch.models.rpn import RPNOut
+
+    dev = next(model.parameters()).device
+    x, inf = images.to(dev), info.to(dev)
+    with torch.no_grad():
+        feat = model.extractor(model._prepare(x, inf))
+        rpn = model.rpn(feat)
+        raw = model.detect(x, inf)
+        cls_score, _ = model.roi_forward(feat, raw.rois)
+        dets = postprocess(raw, inf, thresh_cfg)
+    host = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+
+    def head_on(rois):
+        with torch.no_grad():
+            cs, bp = model.roi_forward(feat, torch.from_numpy(rois).to(dev))
+        return host(torch.softmax(cs, -1)), host(bp)
+
+    def epilogue(rois, valid, prob, bbox_pred):
+        r = RawDetections(*(torch.from_numpy(np.asarray(a)).to(dev)
+                            for a in (rois, valid, prob, bbox_pred)))
+        with torch.no_grad():
+            return [t.cpu().numpy() for t in postprocess(r, inf, thresh_cfg)]
+
+    out = dict(rpn=RPNOut(*(host(t) for t in rpn)), rois=host(raw.rois),
+               roi_valid=raw.roi_valid.cpu().numpy(), cls_prob=host(raw.cls_prob),
+               bbox_pred=host(raw.bbox_pred), cls_score=host(cls_score),
+               dets=[t.cpu().numpy() for t in dets])
+    return out, head_on, epilogue
+
+
+def phase_small_parity_bf16(dev, backbone: str, mode: str = "max"):
+    """The small detect config in the dtype the port ships, bf16 compute
+    after ``cast_params_for_inference``, on the card against the same model
+    on the CPU (plain versions), from the same seeded weights and images
+    as :func:`phase_small_parity`: the RPN tensors, proposals, cls_prob and
+    detections within the limits tests/test_torch_bf16.py derives (bf16
+    ulps of each tensor's scale from its count of rounding points: cuDNN
+    and oneDNN both sum in float32, in other orders), each discrete
+    difference within its decision's margin (``compare_detect``).  One
+    line: the largest differences in ulps, and the flips."""
+    import dataclasses
+
+    import torch
+
+    from trcnn_torch.models import cast_params_for_inference, make_model
+
+    lim = bf16_limits()
+    cfg, cpu32, images, info, thresh = small_case(backbone, mode)
+    thresh_cfg = cfg if thresh is None else cfg.replace(
+        test=dataclasses.replace(cfg.test, score_thresh_eval=thresh))
+    models = []
+    for d in ("cpu", dev):
+        m = make_model(cfg, dtype=torch.bfloat16, device=d)
+        m.load_state_dict(cpu32.state_dict())
+        models.append(cast_params_for_inference(m.eval(), torch.bfloat16))
+    ref, _, _ = detect_stages(models[0], images, info, thresh_cfg)
+    got, head_on, epilogue = detect_stages(models[1], images, info, thresh_cfg)
+    what = f"small {NAMES[backbone]} config, RoI {mode}, bf16"
+    r_rpn, r_head = BF16_ROUNDINGS[backbone]
+    res = lim.compare_detect(what, thresh_cfg, ref, got, info.numpy(), r_rpn, r_head, head_on,
+                             epilogue, min_dets=1)
+    u = {k: round(lim.ulps(getattr(got["rpn"], k), getattr(ref["rpn"], k)), 2)
+         for k in ("fg_probs", "logits", "deltas")}
+    u["cls_prob"] = round(res["cls_prob"] / float(lim.bf16_ulp(np.abs(ref["cls_prob"]).max())), 2)
+    phase(f"{what}: card == CPU plain path within the derived limits; ulps of each tensor's "
+          f"scale {u}, rois {res['rois_px']:.3g} px (limit {res['rois_limit_px']:.3g}), "
+          f"{int(ref['dets'][3].sum())} detections, {len(res['flips'])} decisions within "
+          f"their margins {[f[2] for f in res['flips']]}")
 
 
 def train_cfg(backbone: str = "vgg16"):
@@ -954,6 +1068,26 @@ def train_proposals(model, images, im_info):
         return model.propose(rpn, im_info, train=True)
 
 
+def train_case(backbone: str):
+    """The small training case of :func:`phase_train_parity`: the config,
+    the float32 CPU model with its seeded weights (ResNet-101's residual
+    branches woken, the RPN's outputs spread) and the batch (images,
+    im_info, gt boxes, labels, validity)."""
+    import torch
+
+    cfg = train_cfg(backbone)
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
+    info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
+    gtb = torch.zeros((2, 4, 4))
+    gtb[0, :3] = torch.tensor([[10, 12, 70, 60], [90, 30, 170, 100], [40, 70, 110, 115.0]])
+    gtb[1, :2] = torch.tensor([[20, 15, 95, 80], [100, 40, 150, 95.0]])
+    gtl = torch.tensor([[3, 7, 12, 0], [5, 18, 0, 0]], dtype=torch.int32)
+    gtv = torch.tensor([[True, True, True, False], [True, True, False, False]])
+    cpu = small_model(backbone, cfg, 3, images, info, head=False)
+    return cfg, cpu, (images, info, gtb, gtl, gtv)
+
+
 def phase_train_parity(dev, backbone: str):
     """The small training config on the card and on the CPU (plain
     versions), float32, the same weights and the same sampling draws
@@ -970,16 +1104,7 @@ def phase_train_parity(dev, backbone: str):
     from trcnn_torch.ops.anchors import shifted_anchors
     from trcnn_torch.targets import anchor_targets
 
-    cfg = train_cfg(backbone)
-    rng = np.random.default_rng(3)
-    images = torch.from_numpy((rng.standard_normal((2, 128, 192, 3)) * 40).astype(np.float32))
-    info = torch.tensor([[120.0, 180.0, 1.2], [100.0, 160.0, 1.0]])
-    gtb = torch.zeros((2, 4, 4))
-    gtb[0, :3] = torch.tensor([[10, 12, 70, 60], [90, 30, 170, 100], [40, 70, 110, 115.0]])
-    gtb[1, :2] = torch.tensor([[20, 15, 95, 80], [100, 40, 150, 95.0]])
-    gtl = torch.tensor([[3, 7, 12, 0], [5, 18, 0, 0]], dtype=torch.int32)
-    gtv = torch.tensor([[True, True, True, False], [True, True, False, False]])
-    cpu = small_model(backbone, cfg, 3, images, info, head=False)
+    cfg, cpu, (images, info, gtb, gtl, gtv) = train_case(backbone)
     gpu = make_model(cfg, device=dev)
     gpu.load_state_dict(cpu.state_dict())
     uni = cpu.draw_uniforms(2, (8, 12), 4, torch.Generator().manual_seed(4))
@@ -1016,6 +1141,100 @@ def phase_train_parity(dev, backbone: str):
           f"fg rois {float(ref['num_fg_rois'])}, losses within {worst:.2e} relative")
     train_step_parity(cpu, gpu, (args, on_dev(args)), (uni, gpu_uni),
                       (props_c, on_dev(props_c)), what)
+
+
+# bf16 rounding points on the longest backward path to a trained tensor:
+# the forward's to cls_score, then a cast cotangent and a rounded sum for
+# each layer down to the deepest trained one (VGG-16: fc7, fc6, conv5_3 ...
+# conv3_1; ResNet-101: res5, then res4 and res3, three convolutions a block)
+BF16_GRAD_ROUNDINGS = {"vgg16": 28 + 2 * 10 + 2, "resnet101": 334 + 2 * 90 + 2}
+
+
+def phase_train_parity_bf16(dev, backbone: str):
+    """One training step of the small training config in bf16 compute with
+    float32 parameters (as ``train_entry`` trains), on the card against the
+    CPU (plain versions), from the same weights as
+    :func:`phase_train_parity`, the same sampling draws and the CPU's bf16
+    proposals: sampled counts equal; each loss within its Lipschitz bound
+    of its inputs' limit (cross-entropy 2x the logits', smooth L1 4x the
+    deltas', tests/test_torch_bf16.py); each trained tensor's gradient
+    within ``bf16_limit`` at BF16_GRAD_ROUNDINGS points (cuDNN and oneDNN
+    both sum bf16 products in float32); the update within 1e-5 of each
+    parameter's largest magnitude plus the learning rate (doubled for
+    biases) times its gradient's limit; the frozen parameters unchanged.
+    One line: the losses and the largest gradient differences in ulps."""
+    import torch
+
+    from trcnn_torch.models import make_model
+    from trcnn_torch.train import TrainState, learning_rate
+    from trcnn_torch.train.optim import is_frozen
+
+    lim = bf16_limits()
+    cfg, cpu32, (images, info, gtb, gtl, gtv) = train_case(backbone)
+    uni = cpu32.draw_uniforms(2, (8, 12), 4, torch.Generator().manual_seed(4))
+    what = f"small {NAMES[backbone]} config training, bf16"
+    res = []
+    props = None
+    for d in ("cpu", dev):
+        model = make_model(cfg, dtype=torch.bfloat16, device=d)
+        model.load_state_dict(cpu32.state_dict())
+        if props is None:
+            props = train_proposals(model, images, info)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        outs = {}
+        hooks = [model.rpn.register_forward_hook(lambda m, i, o: outs.update(rpn=o)),
+                 model.head.register_forward_hook(lambda m, i, o: outs.update(head=o))]
+        model.train()
+        state = TrainState.create(model)
+        on = lambda ts: [t.to(d) for t in ts]  # noqa: E731
+        out = model.losses(*on((images, info, gtb, gtl, gtv)), generator=torch.Generator(device=d),
+                           uniforms={k: v.to(d) for k, v in uni.items()}, proposals=on(props))
+        model.zero_grad(set_to_none=True)
+        out["loss"].backward()
+        for h in hooks:
+            h.remove()
+        grads = {k: p.grad.float().cpu() for k, p in model.named_parameters() if p.grad is not None}
+        state.optimizer.step(0)
+        res.append(({k: float(v.detach()) for k, v in out.items()}, grads,
+                    {k: p.detach().cpu() for k, p in model.named_parameters()},
+                    {k: v.cpu() for k, v in before.items()}, outs))
+    (ref, g_c, p_c, before, outs), (got, g_g, p_g, _, _) = res
+    for k in ("num_fg_anchors", "num_fg_rois"):
+        if got[k] != ref[k]:
+            raise AssertionError(f"{what}: {k} {got[k]} vs CPU {ref[k]}")
+    r_fwd = BF16_ROUNDINGS[backbone][1]
+    host = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    loss_lim = {"rpn_cls_loss": 2 * lim.bf16_limit(host(outs["rpn"].logits), r_fwd),
+                "rpn_bbox_loss": 4 * lim.bf16_limit(host(outs["rpn"].deltas), r_fwd),
+                "cls_loss": 2 * lim.bf16_limit(host(outs["head"][0]), r_fwd),
+                "bbox_loss": 4 * lim.bf16_limit(host(outs["head"][1]), r_fwd)}
+    loss_lim["loss"] = sum(loss_lim.values())
+    for k, limit in loss_lim.items():
+        if abs(got[k] - ref[k]) > limit:
+            raise AssertionError(f"{what}: {k} {got[k]} vs CPU {ref[k]}, limit {limit:.3g}")
+    if g_c.keys() != g_g.keys():
+        raise AssertionError(f"{what}: gradients reach other tensors on the card")
+    r = BF16_GRAD_ROUNDINGS[backbone]
+    lr = learning_rate(cfg.optim, 0)
+    worst = {}
+    for k, w in g_c.items():
+        limit = lim.bf16_limit(w.numpy(), r)
+        worst[k] = lim.ulps(g_g[k].numpy(), w.numpy())
+        if float((g_g[k] - w).abs().max()) > limit:
+            raise AssertionError(f"{what}: gradient of {k} {worst[k]:.2f} ulps from the CPU's, "
+                                 f"limit {limit:.3g} (r={r})")
+        slack = 1e-5 * float(p_c[k].abs().max()) + (1 + k.endswith("bias")) * lr * limit
+        if (not is_frozen(k, backbone)
+                and float((p_g[k] - p_c[k]).abs().max()) > slack):
+            raise AssertionError(f"{what}: {k} after the update differs from the CPU's")
+    for k, w in p_c.items():
+        if is_frozen(k, backbone) and not (torch.equal(w, before[k]) and torch.equal(p_g[k], before[k])):
+            raise AssertionError(f"{what}: frozen {k} moved")
+    top = sorted(worst, key=worst.get, reverse=True)[:3]
+    phase(f"{what}: card == CPU plain path within the derived limits; losses "
+          f"{ {k: (round(got[k], 6), round(ref[k], 6)) for k in loss_lim} }; gradients, ulps of "
+          f"each tensor's scale: largest {[(k, round(worst[k], 2)) for k in top]}, median "
+          f"{statistics.median(worst.values()):.2f} over {len(worst)} tensors (limit at r={r})")
 
 
 def compare_losses(got, ref, what) -> float:
@@ -4458,7 +4677,9 @@ def main() -> int:
     rec = phase_kernels(dev)
     for backbone in BACKBONES:
         phase_small_parity(dev, backbone)
+        phase_small_parity_bf16(dev, backbone)
         phase_train_parity(dev, backbone)
+        phase_train_parity_bf16(dev, backbone)
     by_path = {}
     for backbone in BACKBONES:
         by_path[f"{backbone} detect"] = phase_slice(dev, backbone, rec)
@@ -4487,6 +4708,7 @@ def main() -> int:
     phase_align_kernels(dev, rec)
     for backbone in BACKBONES:
         phase_small_parity(dev, backbone, "align")
+        phase_small_parity_bf16(dev, backbone, "align")
     phase_int8_small(dev)
     by_path["vgg16 align detect"] = phase_slice(dev, "vgg16", rec, "align")
     by_path["vgg16 align train"] = phase_train(dev, "vgg16", rec, "align")

@@ -281,64 +281,8 @@ def test_trimmed_nms_equals_untrimmed_and_jax(case, grouped, monkeypatch):
         assert kept[1] == 0 and kept[0] == max_out and 0 < kept[2]
 
 
-def test_presorted_nms_is_not_trimmed(monkeypatch):
-    """The proposal layer's presorted input is suppressed whole: no read
-    back to the host."""
-    boxes, scores, valid, _ = _nms_batch(5, 2, 200, (0.5, 0.5))
-    order = np.argsort(-np.where(valid, scores, -np.inf), axis=1, kind="stable")
-    take = lambda a: np.take_along_axis(a, order, 1)  # noqa: E731
-    sboxes = np.take_along_axis(boxes, order[..., None], 1)
-
-    def refuse(_):
-        raise AssertionError("presorted input was trimmed")
-
-    monkeypatch.setattr(nms, "valid_prefix", refuse)
-    got = nms.nms_padded(T(sboxes), T(take(scores)), T(take(valid)), 0.7, 50, presorted=True)
-    want = jax_batched_nms(jnp.asarray(sboxes), jnp.asarray(take(scores)),
-                           jnp.asarray(take(valid)), 0.7, 50)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-
-
-# ------------------------------------------------- the multi-scale draw
-
-
-def test_coco_multiscale_draw_matches_the_jax_package():
-    """The COCO preset's multi-scale training draw: the port's loader gives
-    JAX's shorter sides, scales, canvases and boxes batch for batch (the
-    images themselves: tests/test_torch_data.py), and each shorter side of
-    the list gives the scale re-derived as tests/test_cross_impl_coco.py
-    does, in one canvas bucket per orientation."""
-    ours_cfg, theirs_cfg = coco_config().image, jax_coco_config().image
-    kw = dict(batch_size=2, augment=True, shuffle=True, seed=9, uint8_images=True)
-    hw = ((300, 480), (400, 1200))
-    ours = DetectionLoader(SyntheticDetection(n=6, hw_range=hw, seed=2), image_cfg=ours_cfg, **kw)
-    theirs = jax_data.DetectionLoader(jax_data.SyntheticDetection(n=6, hw_range=hw, seed=2),
-                                      image_cfg=theirs_cfg, **kw)
-    got, want = list(ours), list(theirs)
-    assert len(got) == len(want) == 3
-    scales = set()
-    for g, w in zip(got, want):
-        assert g.ids == w.ids and g.images.shape == w.images.shape
-        for k in ("im_info", "gt_boxes", "gt_labels", "gt_valid"):
-            assert np.array_equal(getattr(g, k), getattr(w, k)), k
-        scales |= {float(v) for v in g.im_info[:, 2]}
-    assert len(scales) >= 3
-
-    rng = np.random.RandomState(0)
-    for h, w in ((480, 640), (300, 1200), (640, 480)):
-        img = rng.randint(0, 256, (h, w, 3), np.uint8)
-        for ms in ours_cfg.multiscale_min_sizes:
-            canvas, info = preprocess_image(img, ours_cfg, min_size=ms, as_uint8=True)
-            want_scale = float(ms) / min(h, w)
-            if round(want_scale * max(h, w)) > ours_cfg.target_max_size:
-                want_scale = float(ours_cfg.target_max_size) / max(h, w)
-            assert abs(float(info[2]) - want_scale) < 1e-6
-            assert (int(info[0]), int(info[1])) == (round(h * want_scale), round(w * want_scale))
-            assert canvas.shape[:2] == canvas_shape(h, w, ours_cfg) == (
-                (800, 1344) if w >= h else (1344, 800))
-
-
 # ------------------------------------------------- the CLIs
+
 
 HIDDEN = 32
 N_CATS = 80
@@ -448,3 +392,63 @@ def test_train_cli_takes_a_coco_step(coco_files, capsys):
         with pytest.raises(SystemExit):
             train.parse(argv)
     assert train.parse(["--dataset", "synthetic", "--config", "coco"]).config == "coco"
+
+
+# ------------------------------------------------- the valid-prefix trim, presorted
+
+
+def test_presorted_nms_is_not_trimmed(monkeypatch):
+    """The proposal layer's presorted input is suppressed whole: no read
+    back to the host."""
+    boxes, scores, valid, _ = _nms_batch(5, 2, 200, (0.5, 0.5))
+    order = np.argsort(-np.where(valid, scores, -np.inf), axis=1, kind="stable")
+    take = lambda a: np.take_along_axis(a, order, 1)  # noqa: E731
+    sboxes = np.take_along_axis(boxes, order[..., None], 1)
+
+    def refuse(_):
+        raise AssertionError("presorted input was trimmed")
+
+    monkeypatch.setattr(nms, "valid_prefix", refuse)
+    got = nms.nms_padded(T(sboxes), T(take(scores)), T(take(valid)), 0.7, 50, presorted=True)
+    want = jax_batched_nms(jnp.asarray(sboxes), jnp.asarray(take(scores)),
+                           jnp.asarray(take(valid)), 0.7, 50)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+# ------------------------------------------------- the multi-scale draw
+
+
+def test_coco_multiscale_draw_matches_the_jax_package():
+    """The COCO preset's multi-scale training draw: the port's loader gives
+    JAX's shorter sides, scales, canvases and boxes batch for batch (the
+    images themselves: tests/test_torch_data.py), and each shorter side of
+    the list gives the scale re-derived as tests/test_cross_impl_coco.py
+    does, in one canvas bucket per orientation."""
+    ours_cfg, theirs_cfg = coco_config().image, jax_coco_config().image
+    kw = dict(batch_size=2, augment=True, shuffle=True, seed=9, uint8_images=True)
+    hw = ((300, 480), (400, 1200))
+    ours = DetectionLoader(SyntheticDetection(n=6, hw_range=hw, seed=2), image_cfg=ours_cfg, **kw)
+    theirs = jax_data.DetectionLoader(jax_data.SyntheticDetection(n=6, hw_range=hw, seed=2),
+                                      image_cfg=theirs_cfg, **kw)
+    got, want = list(ours), list(theirs)
+    assert len(got) == len(want) == 3
+    scales = set()
+    for g, w in zip(got, want):
+        assert g.ids == w.ids and g.images.shape == w.images.shape
+        for k in ("im_info", "gt_boxes", "gt_labels", "gt_valid"):
+            assert np.array_equal(getattr(g, k), getattr(w, k)), k
+        scales |= {float(v) for v in g.im_info[:, 2]}
+    assert len(scales) >= 3
+
+    rng = np.random.RandomState(0)
+    for h, w in ((480, 640), (300, 1200), (640, 480)):
+        img = rng.randint(0, 256, (h, w, 3), np.uint8)
+        for ms in ours_cfg.multiscale_min_sizes:
+            canvas, info = preprocess_image(img, ours_cfg, min_size=ms, as_uint8=True)
+            want_scale = float(ms) / min(h, w)
+            if round(want_scale * max(h, w)) > ours_cfg.target_max_size:
+                want_scale = float(ours_cfg.target_max_size) / max(h, w)
+            assert abs(float(info[2]) - want_scale) < 1e-6
+            assert (int(info[0]), int(info[1])) == (round(h * want_scale), round(w * want_scale))
+            assert canvas.shape[:2] == canvas_shape(h, w, ours_cfg) == (
+                (800, 1344) if w >= h else (1344, 800))

@@ -41,7 +41,8 @@ import pytest
 import torch
 
 from __graft_entry__ import _tiny_cfg
-from tests.test_cross_impl_train import _derive_uniforms, _fixture, _geom, _sampling_rng
+from tests.test_cross_impl_train import _derive_uniforms, _geom, _sampling_rng
+from tests.torch_shared import vgg_train_fixture
 from tests.test_torch_package import REPO
 from tests.test_torch_resnet_train import _cfg as _r101_cfg
 from tests.test_torch_train import _jax_state
@@ -140,11 +141,11 @@ def _load(out, name, rank):
     return torch.load(os.path.join(out, f"{name}.{rank}.pt"), weights_only=False)
 
 
-def _xtrain(out):
+def _xtrain(out, tmp_path_factory):
     """tests/test_torch_train.py's inputs: tests/test_cross_impl_train.py's
     fixture (config without dropout, JAX-initialised weights, images, gt),
     a random momentum trace, and JAX's draws for step 0 of key 11."""
-    jcfg, jmodel, params, images, im_info, (gtb, gtl, gtv) = _fixture()
+    jcfg, jmodel, params, images, im_info, (gtb, gtl, gtv) = vgg_train_fixture(tmp_path_factory)
     rng = np.random.default_rng(0)
     trace = jax.tree.map(lambda p: (rng.standard_normal(p.shape) * 1e-3).astype(np.float32),
                          params)
@@ -230,7 +231,7 @@ def dp(tmp_path_factory):
                                       "out": out, "jobs": ranked}, range(WORLD)),
         _launch(f"{out}/cli.json", cli, range(WORLD), cli=True)]
     try:
-        xjcfg, jmodel, params, trace, xbatch, key = _xtrain(out)
+        xjcfg, jmodel, params, trace, xbatch, key = _xtrain(out, tmp_path_factory)
         xjob = job("xtrain", "step", _port_cfg(xjcfg), "xtrain",
                    batches=f"{out}/xtrain_batches.pt", uniforms=f"{out}/xtrain_uniforms.pt",
                    momentum=f"{out}/xtrain_momentum.pt", keep_params=True)

@@ -10,14 +10,11 @@ agree within the tolerances stated in each test: about 1e-6 of the
 largest magnitude was measured for the features, the RPN and the head, so
 1e-4 leaves room for other summation orders.
 
-The JAX side compiles two graphs, once for the file: detect + postprocess,
+The JAX side runs two graphs operation by operation: detect (postprocess jitted),
 and the trunk, the RPN and the head on fixed RoIs.  ``_fixture`` itself
 (a jitted R101 init and three forwards) is built once per test run for
-this file and tests/test_torch_resnet_train.py (:func:`shared_fixture`).
+this file and the other ResNet-101 port files (``tests/torch_shared.py``).
 """
-
-import fcntl
-import os
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +23,6 @@ import pytest
 import torch
 from flax import linen as fnn
 
-from tests.test_cross_impl_resnet import _cfg as _fixture_cfg
-from tests.test_cross_impl_resnet import _fixture
 from trcnn.models import make_model as jax_make_model
 from trcnn.models import resnet as jax_resnet
 from trcnn.models.faster_rcnn import cast_params_for_inference as jax_cast
@@ -38,6 +33,7 @@ from trcnn_torch.entry import entry
 from trcnn_torch.models import cast_params_for_inference, make_model, postprocess
 from trcnn_torch.models import resnet
 from tests.test_torch_package import torch_threads  # noqa: F401,E402  (autouse)
+from tests.torch_shared import r101_fixture as shared_fixture
 
 T = torch.from_numpy
 FIXED_ROIS = np.stack([np.asarray([10.0, 10.0, 80.0, 90.0]) + 3 * i
@@ -49,56 +45,16 @@ def _rel_err(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-9)
 
 
-def shared_fixture(tmp_path_factory):
-    """tests/test_cross_impl_resnet.py's ``_fixture()``, built once per test
-    run: the first caller builds it and saves its arrays where every
-    worker process of the run can read them (the run's shared temporary
-    directory), the others wait for that and load them."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    path = base / "r101_fixture.npz"
-    with open(base / "r101_fixture.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.exists():
-            cfg, model, params, images, im_info = _fixture()
-            flat = {"/".join(k): v for k, v in _leaves(params)}
-            tmp = base / f"r101_fixture.{os.getpid()}.npz"
-            np.savez(tmp, images=images, im_info=im_info, **{"p/" + k: v for k, v in flat.items()})
-            os.replace(tmp, path)
-            return cfg, model, params, images, im_info
-    params = {}
-    with np.load(path) as f:
-        for k in f.files:
-            if k.startswith("p/"):
-                *mods, leaf = k[2:].split("/")
-                node = params
-                for m in mods:
-                    node = node.setdefault(m, {})
-                node[leaf] = f[k]
-        images, im_info = f["images"], f["im_info"]
-    cfg = _fixture_cfg()
-    return cfg, jax_make_model(cfg, dtype=jnp.float32), params, images, im_info
-
-
-def _leaves(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     cfg, model, params, images, im_info = shared_fixture(tmp_path_factory)
 
-    @jax.jit
+    # operation by operation: a ResNet-101 graph takes minutes to compile on
+    # the CPU, its operations compile once per shape
     def detect(p, x, info):
         raw = model.apply(p, x, info, method="detect")
-        return raw, jax_postprocess(raw, info, cfg)
+        return raw, jax.jit(jax_postprocess, static_argnums=2)(raw, info, cfg)
 
-    @jax.jit
     def trunk(p, x, rois):
         feat = model.apply(p, x, method="features")
         return (feat, model.apply(p, feat, method="rpn_out"),

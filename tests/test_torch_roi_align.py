@@ -43,7 +43,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_cross_impl_train import B, _derive_uniforms, _fixture, _geom, _sampling_rng
+from tests.test_cross_impl_train import B, _derive_uniforms, _geom, _sampling_rng
+from tests.torch_shared import vgg_train_fixture
 from trcnn.config import FasterRCNNConfig, ProposalConfig
 from trcnn.models import make_model as jax_make_model
 from trcnn.models.faster_rcnn import postprocess as jax_postprocess
@@ -201,32 +202,6 @@ def test_backward_plan_fits_every_map(h, w, c):
         assert smem == ty * tx * cc * 4 <= max(roi_align.SLAB_BYTES, cc * 4)
 
 
-def test_constant_map_and_linear_ramp():
-    """tests/test_roi_pool.py's two RoIAlign cases through the port, and
-    the same inputs through JAX: a constant map gives the constant; a ramp
-    along x gives the bins' sample centres exactly, away from the border."""
-    rng = np.random.RandomState(0)
-    feat = np.full((1, 12, 12, 3), 2.5, np.float32)
-    xy = rng.uniform(0, 150, (5, 2))
-    wh = rng.uniform(8, 60, (5, 2))
-    rois = np.concatenate([xy, xy + wh], 1)[None].astype(np.float32)
-    got = roi_align.roi_align_plain(T(feat), T(rois)).numpy()
-    np.testing.assert_allclose(got, 2.5, rtol=1e-5)
-    ramp = np.arange(16, dtype=np.float32)[None, :].repeat(16, 0)[None, ..., None]
-    box = np.array([[[32.0, 32.0, 160.0, 160.0]]], np.float32)
-    got = roi_align.roi_align_plain(T(ramp), T(box)).numpy()[0, 0, ..., 0]
-    expect = 2.0 + (np.arange(7) + 0.5) * (8.0 / 7)
-    np.testing.assert_allclose(got.mean(axis=0), expect, rtol=1e-5)
-    want = np.asarray(roi_align_batched(jnp.asarray(ramp), jnp.asarray(box)))[0, 0, ..., 0]
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
-
-
-def test_unknown_roi_mode_is_refused():
-    cfg = FasterRCNNConfig()
-    with pytest.raises(ValueError, match="RoI mode"):
-        make_model(cfg.replace(roi=dataclasses.replace(cfg.roi, mode="bilinear")), device="cpu")
-
-
 # ------------------------------------------------------------ the model
 
 
@@ -270,11 +245,11 @@ def test_vgg16_align_detections_match_jax():
 
 
 @pytest.fixture(scope="module")
-def train_run():
+def train_run(tmp_path_factory):
     """tests/test_cross_impl_train.py's fixture with RoIAlign: JAX's losses
     and gradients from one value_and_grad, and the port's from the same
     parameters and sampling draws."""
-    cfg, _, params, images, im_info, (gtb, gtl, gtv) = _fixture()
+    cfg, _, params, images, im_info, (gtb, gtl, gtv) = vgg_train_fixture(tmp_path_factory)
     cfg = _align(cfg)
     model = jax_make_model(cfg, dtype=jnp.float32)
     fh, fw, n, n_cand = _geom(cfg)
@@ -326,3 +301,32 @@ def test_vgg16_align_gradients_match_jax(train_run):
     assert ratios[worst] <= 1e-3, (worst, ratios[worst])
     # the gradient reached the trunk through RoIAlign's backward
     assert ratios["extractor.conv5_3.weight"] <= 1e-3
+
+
+# ------------------------------------------------------------ special maps and modes
+
+
+def test_constant_map_and_linear_ramp():
+    """tests/test_roi_pool.py's two RoIAlign cases through the port, and
+    the same inputs through JAX: a constant map gives the constant; a ramp
+    along x gives the bins' sample centres exactly, away from the border."""
+    rng = np.random.RandomState(0)
+    feat = np.full((1, 12, 12, 3), 2.5, np.float32)
+    xy = rng.uniform(0, 150, (5, 2))
+    wh = rng.uniform(8, 60, (5, 2))
+    rois = np.concatenate([xy, xy + wh], 1)[None].astype(np.float32)
+    got = roi_align.roi_align_plain(T(feat), T(rois)).numpy()
+    np.testing.assert_allclose(got, 2.5, rtol=1e-5)
+    ramp = np.arange(16, dtype=np.float32)[None, :].repeat(16, 0)[None, ..., None]
+    box = np.array([[[32.0, 32.0, 160.0, 160.0]]], np.float32)
+    got = roi_align.roi_align_plain(T(ramp), T(box)).numpy()[0, 0, ..., 0]
+    expect = 2.0 + (np.arange(7) + 0.5) * (8.0 / 7)
+    np.testing.assert_allclose(got.mean(axis=0), expect, rtol=1e-5)
+    want = np.asarray(roi_align_batched(jnp.asarray(ramp), jnp.asarray(box)))[0, 0, ..., 0]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_unknown_roi_mode_is_refused():
+    cfg = FasterRCNNConfig()
+    with pytest.raises(ValueError, match="RoI mode"):
+        make_model(cfg.replace(roi=dataclasses.replace(cfg.roi, mode="bilinear")), device="cpu")

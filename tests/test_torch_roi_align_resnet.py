@@ -46,10 +46,10 @@ def test_resnet101_align_detections_match_jax(tmp_path_factory):
     cfg = _align(cfg)
     model = jax_make_model(cfg, dtype=jnp.float32)
 
-    @jax.jit
+    # operation by operation: a ResNet-101 graph takes minutes to compile on the CPU
     def detect(p, x, info):
         raw = model.apply(p, x, info, method="detect")
-        return raw, jax_postprocess(raw, info, cfg)
+        return raw, jax.jit(jax_postprocess, static_argnums=2)(raw, info, cfg)
 
     jraw, jdets = jax.tree.map(np.asarray, detect(params, images, im_info))
     pmodel = make_model(cfg, device="cpu")

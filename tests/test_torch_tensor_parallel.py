@@ -87,7 +87,7 @@ def grid(tmp_path_factory):
                                       "n_model": N_MODEL, "out": out, "jobs": ranked},
                 range(WORLD))]
     try:
-        xjcfg, jmodel, params, trace, xbatch, key = _xtrain(out)
+        xjcfg, jmodel, params, trace, xbatch, key = _xtrain(out, tmp_path_factory)
         xjob = job("xtrain", "step", _port_cfg(xjcfg), "xtrain",
                    batches=f"{out}/xtrain_batches.pt", uniforms=f"{out}/xtrain_uniforms.pt",
                    momentum=f"{out}/xtrain_momentum.pt", keep_params=True)

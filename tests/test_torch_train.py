@@ -26,7 +26,8 @@ import optax
 import pytest
 import torch
 
-from tests.test_cross_impl_train import B, _derive_uniforms, _fixture, _geom, _sampling_rng
+from tests.test_cross_impl_train import B, _derive_uniforms, _geom, _sampling_rng
+from tests.torch_shared import vgg_train_fixture
 from trcnn.ops.anchors import shifted_anchors as jax_shifted_anchors
 from trcnn.targets.anchor_targets import anchor_targets as jax_anchor_targets
 from trcnn.targets.proposal_targets import proposal_targets as jax_proposal_targets
@@ -63,11 +64,11 @@ def _jax_state(params, tx, trace, step):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     """One JAX gradient and two JAX train steps (step 0 and a step past the
     lr decay), each from the same params and a random momentum trace, and
     the port's train step from the same state with the same draws."""
-    cfg, model, params, images, im_info, (gtb, gtl, gtv) = _fixture()
+    cfg, model, params, images, im_info, (gtb, gtl, gtv) = vgg_train_fixture(tmp_path_factory)
     fh, fw, n, n_cand = _geom(cfg)
     batch = {"images": images, "im_info": im_info, "gt_boxes": gtb,
              "gt_labels": gtl, "gt_valid": gtv}
