@@ -1464,6 +1464,15 @@ def check_dets(dets, b, d=100):
         raise AssertionError("no detections")
 
 
+def launch_counts():
+    """Each kernel's launches (``_build.COUNTERS``) since the port's counter
+    table was last reset."""
+    from trcnn_torch import _build
+    from trcnn_torch.utils import profiling
+
+    return {k: profiling.counters["launch." + k] for k in _build.COUNTERS}
+
+
 def require_launches(path, launches):
     """The path launched each of its kernels (``REQUIRED``) and no other."""
     missing = [k for k in REQUIRED[path] if launches[k] == 0]
@@ -1478,12 +1487,12 @@ def require_nms_launches(what, call, want):
     """K1 launches once per batch: count its launches around one call."""
     import torch
 
-    from trcnn_torch import _build
+    from trcnn_torch.utils import profiling
 
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     call()
     torch.cuda.synchronize()
-    got = _build.launch_counts["nms"]
+    got = profiling.counters["launch.nms"]
     if got != want:
         raise AssertionError(f"{what} launched K1 {got} times, expected {want}")
     phase(f"  {what}: K1 launched {got} times in one call")
@@ -1510,9 +1519,9 @@ def phase_slice(dev, backbone: str, rec, mode: str = "max"):
     batch's own inputs (:func:`path_align_rows`)."""
     import torch
 
-    from trcnn_torch import _build
     from trcnn_torch.config import voc_config
     from trcnn_torch.entry import entry
+    from trcnn_torch.utils import profiling
 
     t0 = time.perf_counter()
     cfg = None if mode == "max" else with_mode(voc_config().replace(backbone=backbone), mode)
@@ -1528,7 +1537,7 @@ def phase_slice(dev, backbone: str, rec, mode: str = "max"):
                             generator=gen, device=dev)
     im_info8 = im_info.expand(8, 3).contiguous()
 
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     lat = []
     for x in requests:
         t0 = time.perf_counter()
@@ -1539,7 +1548,7 @@ def phase_slice(dev, backbone: str, rec, mode: str = "max"):
     dets8 = fn(model, images8, im_info8)
     torch.cuda.synchronize()
     check_dets(dets8, 8)
-    launches = dict(_build.launch_counts)
+    launches = launch_counts()
     phase(f"  launches over 3 requests + one batch of 8: {launches}")
     require_launches(path_name(backbone, "detect", mode), launches)
     for b, (x, info) in ((1, (requests[0], im_info)), (8, (images8, im_info8))):
@@ -1600,11 +1609,11 @@ def phase_train(dev, backbone: str, rec, mode: str = "max"):
     (:func:`path_align_rows`)."""
     import torch
 
-    from trcnn_torch import _build
     from trcnn_torch.config import voc_config
     from trcnn_torch.entry import train_entry
     from trcnn_torch.train.optim import is_frozen
     from trcnn_torch.train.step import STAGES
+    from trcnn_torch.utils import profiling
 
     t0 = time.perf_counter()
     cfg = None if mode == "max" else with_mode(voc_config().replace(backbone=backbone), mode)
@@ -1618,7 +1627,7 @@ def phase_train(dev, backbone: str, rec, mode: str = "max"):
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
 
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     times, logs = [], []
     for i in range(7):
         t0 = time.perf_counter()
@@ -1631,7 +1640,7 @@ def phase_train(dev, backbone: str, rec, mode: str = "max"):
                 moved = not torch.equal(p.detach(), before[k])
                 if moved == is_frozen(k, backbone):
                     raise AssertionError(f"after step 1, {k} {'moved' if moved else 'did not move'}")
-    launches = dict(_build.launch_counts)
+    launches = launch_counts()
     frozen = [k for k, p in model.named_parameters() if is_frozen(k, backbone)]
     if any(not torch.equal(model.get_parameter(k), before[k]) for k in frozen):
         raise AssertionError("a frozen parameter moved within 7 steps")
@@ -1876,13 +1885,13 @@ def count_path(path, by_path, call):
     the path must launch exactly its kernels (``REQUIRED``)."""
     import torch
 
-    from trcnn_torch import _build
+    from trcnn_torch.utils import profiling
 
     torch.cuda.synchronize()
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     out = call()
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = launch_counts()
     require_launches(path, launches)
     by_path[path] = launches
     return out, launches
@@ -2679,8 +2688,8 @@ def phase_coco_detect(dev, backbone: str, rec, mode: str = "max"):
     (:func:`path_align_rows`) instead of the epilogue report."""
     import torch
 
-    from trcnn_torch import _build
     from trcnn_torch.entry import entry
+    from trcnn_torch.utils import profiling
 
     cfg = coco_cfg(backbone, mode)
     t0 = time.perf_counter()
@@ -2696,7 +2705,7 @@ def phase_coco_detect(dev, backbone: str, rec, mode: str = "max"):
           f"{cfg.proposals.post_nms_topk_test} proposals, RoI {mode} {model.pool_size}, built "
           f"and calibrated in {time.perf_counter() - t0:.1f} s")
 
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     dets = fn(model, image, im_info)
     torch.cuda.synchronize()
@@ -2705,7 +2714,7 @@ def phase_coco_detect(dev, backbone: str, rec, mode: str = "max"):
     dets8 = fn(model, images8, im_info8)
     torch.cuda.synchronize()
     check_dets(dets8, 8)
-    launches = dict(_build.launch_counts)
+    launches = launch_counts()
     phase(f"  launches over one request + one batch of 8: {launches}; detections per image "
           f"{dets8.valid.sum(-1).tolist()}, classes {len(set(dets8.classes[dets8.valid].tolist()))}")
     require_launches(path_name(backbone, "detect", mode, coco=True), launches)
@@ -2749,12 +2758,12 @@ def phase_coco_train(dev, backbone: str, rec, mode: str = "max"):
     (:func:`path_align_rows`)."""
     import torch
 
-    from trcnn_torch import _build
     from trcnn_torch.data import DetectionLoader, SyntheticDetection
     from trcnn_torch.entry import train_entry
     from trcnn_torch.train.optim import is_frozen
     from trcnn_torch.train.step import STAGES
     from trcnn_torch.train.step import device_batch
+    from trcnn_torch.utils import profiling
 
     cfg = coco_cfg(backbone, mode)
     t0 = time.perf_counter()
@@ -2773,7 +2782,7 @@ def phase_coco_train(dev, backbone: str, rec, mode: str = "max"):
           f"built in {time.perf_counter() - t0:.1f} s")
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     times = []
     for i, batch in enumerate(batches[:5]):
         t0 = time.perf_counter()
@@ -2786,7 +2795,7 @@ def phase_coco_train(dev, backbone: str, rec, mode: str = "max"):
                 moved = not torch.equal(p.detach(), before[k])
                 if moved == is_frozen(k, backbone):
                     raise AssertionError(f"after step 1, {k} {'moved' if moved else 'did not move'}")
-    launches = dict(_build.launch_counts)
+    launches = launch_counts()
     frozen = [k for k, p in model.named_parameters() if is_frozen(k, backbone)]
     if any(not torch.equal(model.get_parameter(k), before[k]) for k in frozen):
         raise AssertionError("a frozen parameter moved")
@@ -3332,8 +3341,8 @@ def phase_int8(dev, by_path):
     and the share of int8 detections whose class agrees with bf16's."""
     import torch
 
-    from trcnn_torch import _build
     from trcnn_torch.entry import entry
+    from trcnn_torch.utils import profiling
 
     for coco in (False, True):
         cfg = coco_cfg() if coco else None
@@ -3350,13 +3359,13 @@ def phase_int8(dev, by_path):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         path = path_name("vgg16", "detect", "int8", coco)
-        _build.reset_launch_counts()
+        profiling.reset_counters()
         if not coco:
             check_dets(fq(mq, image, info), 1)
         dets8 = fq(mq, images8, info8)
         torch.cuda.synchronize()
         check_dets(dets8, 8)
-        launches = dict(_build.launch_counts)
+        launches = launch_counts()
         require_launches(path, launches)
         by_path[path] = launches
         require_nms_launches(f"int8 {what} detect b=8", lambda: fq(mq, images8, info8), 2)
@@ -3671,6 +3680,7 @@ def dp_train_job(job, dev, rank, world, group):
 
     from trcnn_torch import _build, parallel
     from trcnn_torch.train.step import TrainState
+    from trcnn_torch.utils import profiling
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -3688,17 +3698,17 @@ def dp_train_job(job, dev, rank, world, group):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     refs, steps, captured = [], [], {}
-    launches = dict.fromkeys(_build.launch_counts, 0)
+    launches = dict.fromkeys(_build.COUNTERS, 0)
     for batch in batches:
         if rank == 0:
             refs.append(reference_step(state, batch, world))
         sync()
-        before = dict(_build.launch_counts)
+        before = launch_counts()
         with recording(captured, first_of_shape=True):
             steps += run_steps(state, [rows(batch, rank, world)])
         sync()
         for k in launches:
-            launches[k] += _build.launch_counts[k] - before[k]
+            launches[k] += profiling.counters["launch." + k] - before[k]
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
     checked = replay(captured, f"rank {rank}'s data-parallel steps")
     del captured
@@ -3723,9 +3733,9 @@ def dp_eval_job(job, dev, rank, world, group):
     input shape, every K1 call) through the plain versions."""
     import torch
 
-    from trcnn_torch import _build
     from trcnn_torch.data import SyntheticDetection
     from trcnn_torch.eval import Evaluator
+    from trcnn_torch.utils import profiling
 
     cfg = config_from_dict(job["cfg"])
     model = eval_model(cfg, dev)
@@ -3733,13 +3743,13 @@ def dp_eval_job(job, dev, rank, world, group):
     if job.get("gt"):
         ds = GroundTruthFrom(ds, torch.load(job["gt"], weights_only=False))
     ev = Evaluator(model, cfg, ds, batch_size=job["batch_size"], device=dev, group=group)
-    _build.reset_launch_counts()
+    profiling.reset_counters()
     captured = {}
     with recording(captured, first_of_shape=True):
         metrics = ev()
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = launch_counts()
     checked = replay(captured, f"rank {rank}'s share of the evaluation")
     return {"metrics": metrics, "detections": ev.detections, "timing": ev.timing,
             "local_images": ev.last_local_images, "launches": launches,
@@ -4311,6 +4321,7 @@ def grid_job(job, dev, rank, world, group):
     from trcnn_torch.parallel.tensor import load_whole_, param_shardings, whole_state
     from trcnn_torch.train import trainer as trainer_mod
     from trcnn_torch.train.step import TrainState
+    from trcnn_torch.utils import profiling
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -4346,7 +4357,7 @@ def grid_job(job, dev, rank, world, group):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     refs, steps, comms, moves, captured = [], [], [], [], {}
-    launches = dict.fromkeys(_build.launch_counts, 0)
+    launches = dict.fromkeys(_build.COUNTERS, 0)
     for batch in batches:
         if rank == 0:
             ref.model.load_state_dict(whole)
@@ -4354,12 +4365,12 @@ def grid_job(job, dev, rank, world, group):
             ref.step = state.step
             refs.append(reference_step(ref, batch, n_data, keep_params=True))
         sync()
-        before = dict(_build.launch_counts)
+        before = launch_counts()
         with recording(captured, first_of_shape=True), collectives([], mesh) as records:
             steps += run_steps(state, [rows(batch, mesh.data_index, n_data)])
         sync()
         for k in launches:
-            launches[k] += _build.launch_counts[k] - before[k]
+            launches[k] += profiling.counters["launch." + k] - before[k]
         steps[-1]["replicated"] = digest(state.model, names=replicated)
         comms.append(by_axis(records))
         after, momentum = gathered()

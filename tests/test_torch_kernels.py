@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from trcnn_torch import _build
 from trcnn_torch.ops import nms, quant, roi_align, roi_pool, stem
+from trcnn_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.gpu
 
@@ -57,9 +57,9 @@ def test_nms_kernel_matches_plain(dev, n, t, max_out, n_groups):
     order = torch.sort(-torch.where(valid, scores, -torch.inf), stable=True).indices
     args = [boxes[order], valid[order], None if groups is None else groups[order]]
     args = [None if a is None else a.to(dev).contiguous() for a in args]
-    before = _build.launch_counts["nms"]
+    before = counters["launch.nms"]
     kp, kv = nms.greedy_keep_cuda(args[0], args[1], t, max_out, args[2])
-    assert _build.launch_counts["nms"] == before + 1
+    assert counters["launch.nms"] == before + 1
     pp, pv = nms.greedy_keep_plain(args[0], args[1], t, max_out, args[2])
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(kp, pp)
@@ -97,9 +97,9 @@ def test_batched_nms_kernel_matches_plain(dev, b, n, t, max_out, n_groups):
     among them."""
     boxes, valid, groups = _sorted_nms_batch(np.random.default_rng(b * n), b, n, n_groups)
     args = [None if a is None else a.to(dev).contiguous() for a in (boxes, valid, groups)]
-    before = _build.launch_counts["nms"]
+    before = counters["launch.nms"]
     kp, kv = nms.greedy_keep_cuda(args[0], args[1], t, max_out, args[2])
-    assert _build.launch_counts["nms"] == before + 1
+    assert counters["launch.nms"] == before + 1
     assert kp.shape == (b, max_out) and kv.shape == (b, max_out)
     pp, pv = nms.greedy_keep_plain(args[0], args[1], t, max_out, args[2])
     torch.cuda.synchronize()
@@ -172,9 +172,9 @@ def test_roi_pool_backward_kernel(dev, dtype, ties, b, r, h, w, c, p):
     g_int = torch.tensor(rng.integers(-4, 5, (b, r, p, p, c)), dtype=dtype, device=dev)
     want = roi_pool.roi_pool_backward_plain(feat, rois_t, g_int, p)
     for f, gi in ((feat, g_int), (_unaligned(feat), _unaligned(g_int))):
-        before = _build.launch_counts["roi_pool_bwd"]
+        before = counters["launch.roi_pool_bwd"]
         k = roi_pool.roi_pool_backward_cuda(f, rois_t, gi, p)
-        assert _build.launch_counts["roi_pool_bwd"] == before + 1
+        assert counters["launch.roi_pool_bwd"] == before + 1
         assert k.dtype == dtype and torch.equal(_bits(k), _bits(want))
     g = torch.tensor(rng.standard_normal((b, r, p, p, c)), dtype=dtype, device=dev)
     k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g, p).float()
@@ -213,10 +213,10 @@ def test_roi_pool_backward_large_map_kernel(dev, dtype, ties, b, r, h, w, c):
     g_int = torch.tensor(rng.integers(-4, 5, (b, r, 7, 7, c)), dtype=dtype, device=dev)
     want = roi_pool.roi_pool_backward_plain(feat, rois_t, g_int)
     for f, gi in ((feat, g_int), (_unaligned(feat), _unaligned(g_int))):
-        before = dict(_build.launch_counts)
+        before = counters.copy()
         k = roi_pool.roi_pool_backward_cuda(f, rois_t, gi)
-        assert _build.launch_counts["roi_pool_bwd_large"] == before["roi_pool_bwd_large"] + 1
-        assert _build.launch_counts["roi_pool_bwd"] == before["roi_pool_bwd"]
+        assert counters["launch.roi_pool_bwd_large"] == before["launch.roi_pool_bwd_large"] + 1
+        assert counters["launch.roi_pool_bwd"] == before["launch.roi_pool_bwd"]
         assert k.dtype == dtype and torch.equal(_bits(k), _bits(want))
     g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=dtype, device=dev)
     k = roi_pool.roi_pool_backward_cuda(feat, rois_t, g).float()
@@ -419,9 +419,9 @@ def test_roi_align_kernel_bit_equal(dev, dtype, out_dtype, b, r, h, w, c, p):
     assert torch.equal(_bits(want),
                        _bits(roi_align.roi_align_plain(feat, rois, p).to(out_dtype)))
     for f in (feat, _unaligned(feat)):
-        before = _build.launch_counts["roi_align"]
+        before = counters["launch.roi_align"]
         k = roi_align.roi_align_cuda(f, rois, p, out_dtype=out_dtype)
-        assert _build.launch_counts["roi_align"] == before + 1
+        assert counters["launch.roi_align"] == before + 1
         assert k.dtype == out_dtype and torch.equal(_bits(k), _bits(want))
 
 
@@ -444,21 +444,21 @@ def test_roi_align_backward_kernel(dev, dtype, g_dtype, b, r, h, w, c, p):
     scale = float(want.abs().max())
     limit = 1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale)
     for gi in (g, _unaligned(g)):
-        before = _build.launch_counts["roi_align_bwd"]
+        before = counters["launch.roi_align_bwd"]
         k = roi_align.roi_align_backward_cuda(feat.shape, dtype, rois, gi, p)
-        assert _build.launch_counts["roi_align_bwd"] == before + 1
+        assert counters["launch.roi_align_bwd"] == before + 1
         assert k.dtype == dtype
         assert float((k.float() - want).abs().max()) <= limit
         again = roi_align.roi_align_backward_cuda(feat.shape, dtype, rois, gi, p)
         assert torch.equal(_bits(again), _bits(k))
     x = feat.clone().requires_grad_()
     r_t = rois.clone().requires_grad_()
-    before = dict(_build.launch_counts)
+    before = counters.copy()
     out = roi_align.roi_align(x, r_t, p, out_dtype=g_dtype)
     assert out.dtype == g_dtype
     out.backward(g)
-    assert _build.launch_counts["roi_align"] == before["roi_align"] + 1
-    assert _build.launch_counts["roi_align_bwd"] == before["roi_align_bwd"] + 1
+    assert counters["launch.roi_align"] == before["launch.roi_align"] + 1
+    assert counters["launch.roi_align_bwd"] == before["launch.roi_align_bwd"] + 1
     assert r_t.grad is None and x.grad.dtype == dtype
     assert float((x.grad.float() - want).abs().max()) <= limit
 

@@ -8,8 +8,10 @@ covers every source under ``csrc/`` and the compiler flags: a changed source
 gets a fresh build, an unchanged one loads the cached library.
 
 Every launcher returns its ``cudaError_t``; :func:`check` raises on a
-non-zero one.  Each wrapper calls :func:`count_launch` once per kernel
-launch, so a run can show that the main path went through the kernels.
+non-zero one.  Each wrapper counts its launches in the port's counter
+table, ``trcnn_torch.utils.profiling.counters["launch.<counter>"]`` (one of
+``COUNTERS``), so a run can show that the main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -27,27 +29,16 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem", "roi_align", "roi_align_bwd")
-# launch counters: one per kernel, K4's large-map variant apart (it lives in
-# libroi_pool_bwd.so)
+# the launch counters' names: one per kernel, K4's large-map variant apart
+# (it lives in libroi_pool_bwd.so)
 COUNTERS = KERNELS + ("roi_pool_bwd_large",)
 # no --use_fast_math: it makes '/' inexact, and RoI bin bounds need the IEEE
 # quotient (csrc/roi_pool.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
-
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-
-
-def count_launch(name: str) -> None:
-    launch_counts[name] += 1
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -20,6 +20,13 @@ max pool) or "align" (RoIAlign, 2 x 2 samples per bin, float32 output),
 at the same pool size.  ``quant="int8"`` runs VGG-16's convolutions from
 conv2_1 and fc6/fc7 as dynamic int8 products (``ops/quant.py``), for
 inference only.
+
+Each stage runs inside a ``profiling.span`` (``frcnn.prepare``,
+``frcnn.trunk``, ``frcnn.rpn``, ``frcnn.proposals``, ``frcnn.pool``,
+``frcnn.head``; ``postprocess`` is ``frcnn.postprocess``, and the training
+forward adds ``frcnn.targets``).  Under a profiler every device operation
+of ``detect`` and ``postprocess`` is launched inside exactly one of them;
+with none they cost one flag read each.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from trcnn_torch.ops.proposal import proposal_layer
 from trcnn_torch.ops.roi_align import roi_align
 from trcnn_torch.ops.roi_pool import roi_max_pool
 from trcnn_torch.targets import anchor_targets, proposal_targets
+from trcnn_torch.utils.profiling import span
 
 # the uniform draws of the sampling layers: anchor targets over the anchors,
 # proposal targets over the candidates (proposals, then gt)
@@ -143,6 +151,14 @@ class FasterRCNN(nn.Module):
                   & (xx < im_info[:, 1, None, None, None]))
         return torch.where(inside, x, 0.0)
 
+    def _features(self, images: torch.Tensor, im_info: torch.Tensor) -> torch.Tensor:
+        """The trunk's features of the prepared canvas, which is freed on
+        return, as soon as the trunk is done with it."""
+        with span("frcnn.prepare"):
+            x = self._prepare(images, im_info)
+        with span("frcnn.trunk"):
+            return self.extractor(x)
+
     def roi_forward(self, feat: torch.Tensor, rois: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     shard: Tuple[int, int] = (0, 1)):
@@ -155,15 +171,24 @@ class FasterRCNN(nn.Module):
         runs the deterministic head.  ``shard`` (i, n): this rank's slot
         among n data-parallel ranks, whose masks are rows of the global
         batch's (:meth:`draw_uniforms`)."""
-        b, r = rois.shape[:2]
+        with span("frcnn.pool"):
+            pooled = self._pool(feat, rois)
+        with span("frcnn.head"):
+            return self._head(pooled, generator, shard)
+
+    def _pool(self, feat: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
         if self.cfg.roi.mode == "align":
             # the crops in the head's compute dtype: bit-equal to JAX's
             # float32 crops cast by the head, with no float32 crop tensor
-            pooled = roi_align(feat, rois.contiguous(), self.pool_size,
-                               self.cfg.roi.spatial_scale, out_dtype=self.dtype)
-        else:
-            pooled = roi_max_pool(feat, rois.contiguous(), self.pool_size,
-                                  self.cfg.roi.spatial_scale)
+            return roi_align(feat, rois.contiguous(), self.pool_size,
+                             self.cfg.roi.spatial_scale, out_dtype=self.dtype)
+        return roi_max_pool(feat, rois.contiguous(), self.pool_size,
+                            self.cfg.roi.spatial_scale)
+
+    def _head(self, pooled: torch.Tensor, generator: Optional[torch.Generator] = None,
+              shard: Tuple[int, int] = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pooled (B, R, ...) -> (cls_score (B, R, K), bbox_pred (B, R, 4K))."""
+        b, r = pooled.shape[:2]
         cls_score, bbox_pred = self.head(pooled.reshape((b * r,) + pooled.shape[2:]),
                                          generator, shard)
         return cls_score.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
@@ -171,11 +196,18 @@ class FasterRCNN(nn.Module):
     def detect(self, images: torch.Tensor, im_info: torch.Tensor) -> RawDetections:
         """images (B, H, W, 3): mean-subtracted BGR float or raw uint8 canvas;
         im_info (B, 3) float32 rows (scaled_h, scaled_w, im_scale)."""
-        feat = self.extractor(self._prepare(images, im_info))
-        rois, roi_valid = self.propose(self.rpn(feat), im_info, train=False)
-        cls_score, bbox_pred = self.roi_forward(feat, rois)
-        return RawDetections(rois=rois, roi_valid=roi_valid,
-                             cls_prob=torch.softmax(cls_score, dim=-1),
+        feat = self._features(images, im_info)
+        with span("frcnn.rpn"):
+            rpnout = self.rpn(feat)
+        with span("frcnn.proposals"):
+            rois, roi_valid = self.propose(rpnout, im_info, train=False)
+        del rpnout                  # not held through the head's peak
+        with span("frcnn.pool"):
+            pooled = self._pool(feat, rois)
+        with span("frcnn.head"):
+            cls_score, bbox_pred = self._head(pooled)
+            cls_prob = torch.softmax(cls_score, dim=-1)
+        return RawDetections(rois=rois, roi_valid=roi_valid, cls_prob=cls_prob,
                              bbox_pred=bbox_pred)
 
     def propose(self, rpnout, im_info: torch.Tensor, train: bool
@@ -246,18 +278,28 @@ class FasterRCNN(nn.Module):
         b = images.shape[0]
         shard = parallel.shard_of(group)
         b_global = b * shard[1]
-        feat = self.extractor(self._prepare(images, im_info))
-        rpnout = self.rpn(feat)
+        feat = self._features(images, im_info)
+        with span("frcnn.rpn"):
+            rpnout = self.rpn(feat)
         _, fh, fw, _ = feat.shape
         a = cfg.anchors.num_anchors
         n = fh * fw * a
-        if uniforms is None:
-            uniforms = self.draw_uniforms(b, (fh, fw), gt_boxes.shape[1], generator, shard)
+
+        # ---- proposals (no gradient through their coordinates), then the
+        # sampling of anchors and proposals
+        if proposals is None:
+            with span("frcnn.proposals"):
+                proposals = self.propose(rpnout, im_info, train=True)
+        with span("frcnn.targets"):
+            if uniforms is None:
+                uniforms = self.draw_uniforms(b, (fh, fw), gt_boxes.shape[1], generator, shard)
+            anchors = shifted_anchors(fh, fw, cfg.anchors, device=feat.device)
+            at = anchor_targets(anchors, gt_boxes, gt_valid, im_info[:, 0], im_info[:, 1],
+                                uniforms["at_fg"], uniforms["at_bg"], cfg.anchor_targets)
+            pt = proposal_targets(proposals[0], proposals[1], gt_boxes, gt_labels, gt_valid,
+                                  uniforms["pt_fg"], uniforms["pt_bg"], cfg.proposal_targets)
 
         # ---- RPN losses, normalised per image by the sampled-anchor count
-        anchors = shifted_anchors(fh, fw, cfg.anchors, device=feat.device)
-        at = anchor_targets(anchors, gt_boxes, gt_valid, im_info[:, 0], im_info[:, 1],
-                            uniforms["at_fg"], uniforms["at_bg"], cfg.anchor_targets)
         # (B, fH, fW, 2, A) -> (B, N, 2) in anchor order (position major)
         logits = rpnout.logits.reshape(b, fh * fw, 2, a).transpose(2, 3).reshape(b, n, 2)
         deltas = rpnout.deltas.reshape(b, n, 4)
@@ -266,12 +308,6 @@ class FasterRCNN(nn.Module):
         rpn_cls_loss = (torch.where(at.labels >= 0, ce, 0.0).sum(1) / denom).sum() / b_global
         l1 = smooth_l1(deltas - at.bbox_targets, cfg.loss.rpn_smooth_l1_sigma).sum(-1)
         rpn_bbox_loss = (torch.where(at.labels == 1, l1, 0.0).sum(1) / denom).sum() / b_global
-
-        # ---- proposals (no gradient through their coordinates) + sampling
-        if proposals is None:
-            proposals = self.propose(rpnout, im_info, train=True)
-        pt = proposal_targets(proposals[0], proposals[1], gt_boxes, gt_labels, gt_valid,
-                              uniforms["pt_fg"], uniforms["pt_bg"], cfg.proposal_targets)
 
         # ---- head losses
         cls_score, bbox_pred = self.roi_forward(feat, pt.rois, generator, shard)
@@ -303,23 +339,24 @@ def postprocess(raw: RawDetections, im_info: torch.Tensor, cfg: FasterRCNNConfig
                 score_thresh: Optional[float] = None) -> Detections:
     """Decode, clip, grouped per-class NMS and merge for the batch (one NMS
     launch); boxes are divided by im_scale into original-image coordinates."""
-    t = cfg.test
-    if score_thresh is None:
-        score_thresh = t.score_thresh_eval
-    dev = raw.rois.device
-    b, r = raw.rois.shape[:2]
-    k = cfg.num_classes
-    stds = device_constant(tuple(cfg.proposal_targets.bbox_normalize_stds) * k, dev)
-    means = device_constant(tuple(cfg.proposal_targets.bbox_normalize_means) * k, dev)
-    deltas = raw.bbox_pred * stds + means
-    info = im_info[:, None, None, :]                          # (B, 1, 1, 3)
-    boxes = clip_boxes(bbox_transform_inv(raw.rois, deltas), info[..., 0], info[..., 1])
-    boxes = boxes.reshape(b, r, k, 4)
-    det_boxes, det_scores, det_classes, det_valid = multiclass_nms(
-        boxes, raw.cls_prob, raw.roi_valid, t.nms_thresh, score_thresh,
-        max_per_class=t.max_dets_per_class, max_total=t.max_dets_per_image)
-    return Detections(det_boxes / im_info[:, None, None, 2], det_scores, det_classes,
-                      det_valid)
+    with span("frcnn.postprocess"):
+        t = cfg.test
+        if score_thresh is None:
+            score_thresh = t.score_thresh_eval
+        dev = raw.rois.device
+        b, r = raw.rois.shape[:2]
+        k = cfg.num_classes
+        stds = device_constant(tuple(cfg.proposal_targets.bbox_normalize_stds) * k, dev)
+        means = device_constant(tuple(cfg.proposal_targets.bbox_normalize_means) * k, dev)
+        deltas = raw.bbox_pred * stds + means
+        info = im_info[:, None, None, :]                          # (B, 1, 1, 3)
+        boxes = clip_boxes(bbox_transform_inv(raw.rois, deltas), info[..., 0], info[..., 1])
+        boxes = boxes.reshape(b, r, k, 4)
+        det_boxes, det_scores, det_classes, det_valid = multiclass_nms(
+            boxes, raw.cls_prob, raw.roi_valid, t.nms_thresh, score_thresh,
+            max_per_class=t.max_dets_per_class, max_total=t.max_dets_per_image)
+        return Detections(det_boxes / im_info[:, None, None, 2], det_scores, det_classes,
+                          det_valid)
 
 
 def make_model(cfg: FasterRCNNConfig = FasterRCNNConfig(),

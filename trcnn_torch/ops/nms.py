@@ -25,6 +25,7 @@ import torch
 
 from trcnn_torch import _build
 from trcnn_torch.ops.boxes import box_overlap_gt
+from trcnn_torch.utils import profiling
 
 _NEG_INF = float("-inf")
 _BLOCK = 64            # boxes per suppression-mask word (csrc/nms.cu)
@@ -129,7 +130,7 @@ def greedy_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float
              _build.ptr(valid), b, n, iou_thresh, max_out, _build.ptr(mask),
              _build.ptr(keep_pos), _build.ptr(num_kept), _build.stream_of(dev))
     _build.check(err, "trcnn_nms")
-    _build.count_launch("nms")
+    profiling.count("launch.nms")
     keep_valid = torch.arange(max_out, device=dev) < num_kept[:, None]
     return keep_pos, keep_valid
 
@@ -149,9 +150,10 @@ def valid_prefix(svalid: torch.Tensor) -> int:
     rounded up to K1's 64-box mask words, at least one word and at most N.
     An invalid entry is never kept and never suppresses, so the entries
     past it cannot change the result.  On the card this is one
-    device-to-host read."""
+    device-to-host read (the site ``nms.valid_prefix``)."""
     n = svalid.shape[-1]
-    longest = int(svalid.sum(-1).max()) if svalid.numel() else 0
+    longest = profiling.host_read(lambda: int(svalid.sum(-1).max()),
+                                  "nms.valid_prefix") if svalid.numel() else 0
     return min(n, max(_BLOCK, -(-longest // _BLOCK) * _BLOCK))
 
 

@@ -50,6 +50,7 @@ import torch
 
 from trcnn_torch import _build
 from trcnn_torch.ops.boxes import ieee_div
+from trcnn_torch.utils import profiling
 
 # RoIs per chunk of the plain versions: at (8 images, P=14, s=2, 1024
 # channels) one float32 corner tensor of a chunk is 411 MB
@@ -215,7 +216,7 @@ def roi_align_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
              spatial_scale, _DTYPE_CODE[feat.dtype], _DTYPE_CODE[out_dtype], _build.ptr(out),
              _build.stream_of(feat.device))
     _build.check(err, "trcnn_roi_align_fwd")
-    _build.count_launch("roi_align")
+    profiling.count("launch.roi_align")
     return out
 
 
@@ -277,7 +278,7 @@ def roi_align_backward_cuda(feat_shape, feat_dtype, rois: torch.Tensor, g: torch
              spatial_scale, _DTYPE_CODE[g.dtype], _DTYPE_CODE[feat_dtype], plan.v, plan.cc,
              plan.ty, plan.tx, plan.smem, _build.ptr(dfeat), _build.stream_of(g.device))
     _build.check(err, "trcnn_roi_align_bwd")
-    _build.count_launch("roi_align_bwd")
+    profiling.count("launch.roi_align_bwd")
     return dfeat
 
 

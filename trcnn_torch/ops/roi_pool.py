@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from trcnn_torch import _build
+from trcnn_torch.utils import profiling
 
 # roi sizes index a table of this length (trcnn/ops/roi_pool.py:58); the
 # kernel clamps the same way
@@ -213,7 +214,7 @@ def roi_max_pool_cuda(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
              spatial_scale, _DTYPE_CODE[feat.dtype], _build.ptr(out),
              _build.stream_of(dev))
     _build.check(err, "trcnn_roi_pool_fwd")
-    _build.count_launch("roi_pool")
+    profiling.count("launch.roi_pool")
     return out
 
 
@@ -307,7 +308,7 @@ def roi_pool_backward_cuda(feat: torch.Tensor, rois: torch.Tensor, g: torch.Tens
              spatial_scale, _DTYPE_CODE[feat.dtype], plan.cc, plan.band_rows, plan.smem,
              _build.ptr(dfeat), _build.stream_of(feat.device))
     _build.check(err, f"trcnn_{name}")
-    _build.count_launch(name)
+    profiling.count("launch." + name)
     return dfeat
 
 

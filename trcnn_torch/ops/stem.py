@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from trcnn_torch import _build
+from trcnn_torch.utils import profiling
 
 
 def _conv_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,7 +74,7 @@ def stem_block1_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              _build.ptr(b2k), bsz, h, w, _DTYPE_CODE[dt], _build.ptr(out),
              _build.stream_of(dev))
     _build.check(err, "trcnn_stem_fwd")
-    _build.count_launch("stem")
+    profiling.count("launch.stem")
     return out
 
 

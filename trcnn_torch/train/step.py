@@ -8,8 +8,9 @@ draws the sampling uniforms and the dropout masks, is seeded from
 (seed, step): a run resumed from a checkpoint draws what an uninterrupted
 one would, as the JAX step's ``fold_in(rng, state.step)`` does.  The
 generators' numbers are not JAX's; the tests hand in JAX's draws.  The
-three stages run under ``torch.profiler`` spans named in ``STAGES``, which
-record nothing when no profiler runs.  :func:`train_steps` takes K steps
+three stages run under the spans named in ``STAGES``
+(``trcnn_torch.utils.profiling.span``: a ``record_function`` while a
+profiler records, a flag read otherwise).  :func:`train_steps` takes K steps
 in one call (JAX's ``inner_steps=K``).
 
 The JAX step's (data, model) mesh is a grid of ``torch.distributed``
@@ -45,13 +46,13 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from trcnn_torch import parallel
 from trcnn_torch.data.loader import Batch, upload
 from trcnn_torch.models.faster_rcnn import FasterRCNN
 from trcnn_torch.parallel.tensor import param_shardings, shard_model_
 from trcnn_torch.train.optim import CaffeSGD, global_norm
+from trcnn_torch.utils.profiling import span
 
 BATCH_KEYS = ("images", "im_info", "gt_boxes", "gt_labels", "gt_valid")
 # the step's profiler spans, in order
@@ -131,10 +132,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
     model = state.model
     model.train()
     gen = step_generator(seed, state.step, batch["images"].device)
-    with record_function(STAGES[0]):
+    with span(STAGES[0]):
         out = model.losses(*(batch[k] for k in BATCH_KEYS), generator=gen, uniforms=uniforms,
                            proposals=proposals, group=state.group)
-    with record_function(STAGES[1]):
+    with span(STAGES[1]):
         model.zero_grad(set_to_none=True)
         out["loss"].backward()
         kinds = param_shardings(model)
@@ -144,7 +145,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
         # the model ranks of a data index compute the replicated gradients
         # alike, but on the card the backward's atomics part their last bits
         parallel.broadcast_([g for k, g in named if kinds[k] is None], state.mesh.model)
-    with record_function(STAGES[2]):
+    with span(STAGES[2]):
         norm = global_norm(grads, [kinds[k] is not None for k, _ in named], state.mesh.model)
         state.optimizer.step(state.step, norm)
     state.step += 1

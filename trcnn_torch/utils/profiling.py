@@ -5,7 +5,12 @@
 - :func:`trace_to`: ``torch.profiler`` around a block, its chrome trace
   written under a directory;
 - :func:`op_time_breakdown`: the device kernels' time per step in the
-  newest such trace, by kernel family.
+  newest such trace, by kernel family;
+- :func:`span`: the program's named stages, a ``record_function`` while a
+  profiler records and nothing otherwise;
+- :data:`counters`: the port's one counter table: each kernel launch
+  (``launch.<kernel>``) and each deliberate device-to-host read
+  (:func:`host_read`, ``host_read.<site>``).
 """
 
 from __future__ import annotations
@@ -21,9 +26,47 @@ from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 # chrome-trace categories of the device's own work
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# counts by name since the last reset_counters(), in this process
+counters: collections.Counter = collections.Counter()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A named span around a stage: ``record_function(name)`` while a
+    profiler records (``trace_to`` or any other caller of
+    ``torch.profiler``), on the profiler's clock, so that every device
+    operation launched inside it, and every idle gap that begins inside
+    it, can be put down to it.  With no profiler it is one shared context
+    manager that does nothing: one flag read, no allocation, no
+    dispatcher call."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return record_function(name)
+
+
+def count(name: str) -> None:
+    counters[name] += 1
+
+
+def reset_counters() -> None:
+    counters.clear()
+
+
+def host_read(fn: Callable, site: str):
+    """``fn()``, one deliberate device-to-host read (``int(t)``,
+    ``t.item()``, ``t.tolist()``), counted as ``host_read.<site>`` and,
+    while a profiler records, run inside the span of that name; returns
+    what ``fn`` returns."""
+    name = "host_read." + site
+    counters[name] += 1
+    with span(name):
+        return fn()
 
 
 def _first_tensor(out):
