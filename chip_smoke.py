@@ -7,7 +7,7 @@ Phases, one line each, any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name, power limit and compute mode), torch and
    CUDA versions;
-2. build the CUDA kernels K1-K6 from ``trcnn_torch/csrc``, all at once;
+2. build the CUDA kernels K1-K7 from ``trcnn_torch/csrc``, all at once;
 3. each kernel against its plain PyTorch version on the card at the main
    paths' shapes (K1 batched over 8 images, an empty and a short image
    among them; K2 and K4 also at the ResNet-101-C4 pool, P=14 on a
@@ -15,7 +15,10 @@ Phases, one line each, any failure raises and exits non-zero:
    portrait canvas, 1024x608, at a batch of 8 in f32 and bf16), with both times (CUDA events around back-to-back
    calls after warm-up), the least time the card could take
    (``bound_ms``, from this run's inputs) and the kernel's share of it,
-   and, for K3, the cuDNN composite's time beside the kernel's;
+   and, for K3, the cuDNN composite's time beside the kernel's; K7 (the
+   ResNet-101 FrozenBN epilogue) bit-equal to its plain version at the R101
+   COCO detect shapes of the stem, a res4 identity block and res5's
+   projecting block1, each timed beside its bound and the plain version;
 4. for each backbone (VGG-16, ResNet-101-C4), a small config through the
    port on the card and on the CPU (plain versions) with the same weights
    (ResNet-101's conv3 kernels and FrozenBN leaves randomised, so the
@@ -44,8 +47,7 @@ Phases, one line each, any failure raises and exits non-zero:
 6. per backbone, one float32 request and one float32 train step whose
    kernel inputs are captured and replayed through the plain versions;
 7. the ResNet-101 train step with the res3-res5 FrozenBN leaves'
-   gradients (through FrozenBatchNorm's written-out backward, and through
-   plain autograd ops) and without them, in turns; one VGG-16 train step
+   gradients and without them, in turns; one VGG-16 train step
    on a 4800x1440 canvas, whose 300x90 map takes K4's large-map variant
    (a counted path, its kernel calls replayed through the plain versions);
 8. the data path at full width, through the CLIs' own code: a seeded VGG-16
@@ -176,35 +178,38 @@ KERNELS = {
     "roi_align": ("trcnn_torch/csrc/roi_align.cu", "trcnn/ops/roi_align.py:25 (XLA)"),
     "roi_align_bwd": ("trcnn_torch/csrc/roi_align_bwd.cu",
                       "trcnn/ops/roi_align.py:25 (XLA autodiff)"),
+    # ResNet-101's FrozenBN, residual add and ReLU: elementwise operations
+    # that XLA fuses after each convolution; K7 is that fusion
+    "frozen_bn": ("trcnn_torch/csrc/frozen_bn.cu", "trcnn/models/resnet.py:46-48 (XLA fusion)"),
 }
 # the kernels each main path launches; it must launch each of them and no
-# other (K3 is VGG-16's conv1 block only)
+# other (K3 is VGG-16's conv1 block only, K7 ResNet-101's FrozenBN epilogues)
 REQUIRED = {"vgg16 detect": ("nms", "roi_pool", "stem"),
             "vgg16 train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
-            "resnet101 detect": ("nms", "roi_pool"),
-            "resnet101 train": ("nms", "roi_pool", "roi_pool_bwd"),
+            "resnet101 detect": ("nms", "roi_pool", "frozen_bn"),
+            "resnet101 train": ("nms", "roi_pool", "roi_pool_bwd", "frozen_bn"),
             "vgg16 train 4800x1440": ("nms", "roi_pool", "roi_pool_bwd_large", "stem"),
             "vgg16 evaluate float32": ("nms", "roi_pool", "stem"),
             "vgg16 evaluate bfloat16": ("nms", "roi_pool", "stem"),
-            "resnet101 evaluate": ("nms", "roi_pool"),
+            "resnet101 evaluate": ("nms", "roi_pool", "frozen_bn"),
             "vgg16 train CLI": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
             "vgg16 evaluate checkpoint": ("nms", "roi_pool", "stem"),
             "vgg16 forward CLI": ("nms", "roi_pool", "stem"),
             "vgg16 coco detect": ("nms", "roi_pool", "stem"),
             "vgg16 coco train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
-            "resnet101 coco detect": ("nms", "roi_pool"),
-            "resnet101 coco train": ("nms", "roi_pool", "roi_pool_bwd"),
+            "resnet101 coco detect": ("nms", "roi_pool", "frozen_bn"),
+            "resnet101 coco train": ("nms", "roi_pool", "roi_pool_bwd", "frozen_bn"),
             "vgg16 coco evaluate float32": ("nms", "roi_pool", "stem"),
             "vgg16 coco evaluate bfloat16": ("nms", "roi_pool", "stem"),
             "vgg16 align detect": ("nms", "roi_align", "stem"),
             "vgg16 align train": ("nms", "roi_align", "roi_align_bwd", "stem"),
-            "resnet101 coco align detect": ("nms", "roi_align"),
-            "resnet101 coco align train": ("nms", "roi_align", "roi_align_bwd"),
+            "resnet101 coco align detect": ("nms", "roi_align", "frozen_bn"),
+            "resnet101 coco align train": ("nms", "roi_align", "roi_align_bwd", "frozen_bn"),
             "vgg16 int8 detect": ("nms", "roi_pool", "stem"),
             "vgg16 coco int8 detect": ("nms", "roi_pool", "stem"),
             # data parallel: each rank's launches
             "vgg16 dp train": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
-            "resnet101 coco dp train": ("nms", "roi_pool", "roi_pool_bwd"),
+            "resnet101 coco dp train": ("nms", "roi_pool", "roi_pool_bwd", "frozen_bn"),
             "vgg16 dp evaluate": ("nms", "roi_pool", "stem"),
             "vgg16 train CLI nccl": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
             "vgg16 train CLI without group": ("nms", "roi_pool", "roi_pool_bwd", "stem"),
@@ -792,6 +797,86 @@ def phase_kernels(dev):
     return rec
 
 
+# R101 COCO detect (b=8 on 800x1344, 1000 RoIs an image): each epilogue K7
+# is held and timed at, as (what, form, x's NCHW shape); bf16
+FROZEN_BN_SHAPES = (("stem bn1", "relu", (8, 64, 400, 672)),
+                    ("res4 identity bn1", "relu", (8, 256, 50, 84)),
+                    ("res4 identity bn3 + residual", "residual", (8, 1024, 50, 84)),
+                    ("res5 block1 bn1", "relu", (8000, 512, 7, 7)),
+                    ("res5 block1 bn3 + proj_bn", "proj", (8000, 2048, 7, 7)))
+
+
+def kernel_device_ms(call, name: str, iters: int = 10) -> float:
+    """The device time of one ``call``'s kernels whose name holds ``name``,
+    from torch.profiler over ``iters`` calls after one: for a kernel whose
+    wrapper's host work outlasts it, where back-to-back events time the
+    host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if len(ks) != iters:
+        raise AssertionError(f"the profiler saw {len(ks)} {name} kernels in {iters} calls")
+    return sum(e.time_range.end - e.time_range.start for e in ks) / 1e3 / iters
+
+
+def phase_frozen_bn(dev, rec):
+    """K7 against its plain version at ``FROZEN_BN_SHAPES`` (random leaves,
+    var > 0; inputs with both signs), bit-equal, each timed on the device
+    (:func:`kernel_device_ms`; and a call back to back, host included)
+    beside its bound (x, the residual or p, and the output each moved once,
+    at HBM rate) and beside the plain version (its separate passes)."""
+    import torch
+
+    from trcnn_torch.ops import frozen_bn as fbn
+
+    gen = torch.Generator(device=dev).manual_seed(70)
+
+    def leaves(c):
+        return (torch.rand(c, device=dev, generator=gen) + 0.5,
+                torch.randn(c, device=dev, generator=gen),
+                torch.randn(c, device=dev, generator=gen),
+                torch.rand(c, device=dev, generator=gen) * 2 + 0.05, 1e-5)
+
+    rows = []
+    for what, form, shape in FROZEN_BN_SHAPES:
+        def tensor():
+            return (torch.randn(shape, device=dev, generator=gen) * 3).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        x = tensor()
+        side = None if form == "relu" else tensor()
+        p_part = (side, *leaves(shape[1])) if form == "proj" else (None,) * 6
+        args = (x, *leaves(shape[1]), side if form == "residual" else None, *p_part, True)
+        got = fbn.frozen_bn_cuda(*args)
+        if not torch.equal(got, fbn.frozen_bn_plain(*args)):
+            raise AssertionError(f"K7 differs from plain at {what} {shape}")
+        torch.cuda.empty_cache()
+        ms = kernel_device_ms(lambda: fbn.frozen_bn_cuda(*args), "frozen_bn_kernel")
+        call_ms = cuda_time_ms(lambda: fbn.frozen_bn_cuda(*args))
+        plain_ms = cuda_time_ms(lambda: fbn.frozen_bn_plain(*args), warmup=1, iters=3)
+        b = bound(nbytes(x, side, got, *args[1:5], *[a for a in p_part[1:5] if a is not None]),
+                  0, BF16_OPS)
+        name = f"{what} {tuple(shape)} bf16"
+        phase(f"  K7 at {name}: bit-equal; kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+              f"a call back to back), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f}% of it")
+        rows.append(dict(shape=name, ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                         **b))
+        del x, side, p_part, args, got
+        torch.cuda.empty_cache()
+    # the record keeps res5 block1's bn3: the largest call on a main path
+    main = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rec["frozen_bn"] = dict(max_abs_err=0.0, shapes=rows, **{k: rows[-1][k] for k in main})
+
+
 def stem_row(what, a):
     """K3 and the cuDNN composite (the plain version: conv, bias, ReLU,
     conv, bias, ReLU, pool) in turns on the bf16 inputs ``a``, with the
@@ -1347,7 +1432,7 @@ def train_step_parity(cpu, gpu, args, uniforms, proposals, what) -> None:
 KERNEL_GROUPS = (("trcnn_nms", "K1 nms"), ("roi_pool_fwd", "K2 roi_pool"),
                  ("roi_pool_bwd", "K4 roi_pool_bwd"), ("stem_", "K3 stem"),
                  ("roi_align_fwd", "K5 roi_align"), ("roi_align_bwd", "K6 roi_align_bwd"),
-                 ("gemm_s8", "int8 GEMM"),
+                 ("frozen_bn_kernel", "K7 frozen_bn"), ("gemm_s8", "int8 GEMM"),
                  ("imma", "int8 GEMM"),
                  ("gemm", "matmul/conv"), ("conv", "matmul/conv"), ("xmma", "matmul/conv"),
                  ("cutlass", "matmul/conv"), ("nvjet", "matmul/conv"), ("cudnn", "matmul/conv"))
@@ -1677,16 +1762,19 @@ def signature(args):
 def recording(captured, first_of_shape=False):
     """Wrap every kernel wrapper so that each call's inputs (cloned) and
     output land in ``captured[name]``; with ``first_of_shape``, only the
-    first K2-K6 call of each input signature (every K1 call)."""
+    first K2-K6 call of each input signature (every K1 call).  K7 always
+    keeps only the first call of each signature: a ResNet-101 call makes
+    100, on tensors of up to 1.6 GB at R101 COCO detect."""
     import torch
 
-    from trcnn_torch.ops import nms, roi_align, roi_pool, stem
+    from trcnn_torch.ops import frozen_bn, nms, roi_align, roi_pool, stem
 
     targets = {"nms": (nms, "greedy_keep_cuda"), "roi_pool": (roi_pool, "roi_max_pool_cuda"),
                "roi_pool_bwd": (roi_pool, "roi_pool_backward_cuda"),
                "stem": (stem, "stem_block1_cuda"),
                "roi_align": (roi_align, "roi_align_cuda"),
-               "roi_align_bwd": (roi_align, "roi_align_backward_cuda")}
+               "roi_align_bwd": (roi_align, "roi_align_backward_cuda"),
+               "frozen_bn": (frozen_bn, "frozen_bn_cuda")}
     originals, seen = {}, set()
     for key, (mod, name) in targets.items():
         orig = originals[key] = getattr(mod, name)
@@ -1694,7 +1782,8 @@ def recording(captured, first_of_shape=False):
         def wrapped(*args, _orig=orig, _key=key):
             out = _orig(*args)
             sig = (_key, signature(args))
-            if not first_of_shape or _key == "nms" or sig not in seen:
+            once = first_of_shape or _key == "frozen_bn"
+            if not once or _key == "nms" or sig not in seen:
                 seen.add(sig)
                 captured.setdefault(_key, []).append(
                     ([a.clone() if torch.is_tensor(a) else a for a in args], out))
@@ -1709,12 +1798,12 @@ def recording(captured, first_of_shape=False):
 
 
 def replay(captured, what) -> str:
-    """Each captured call through its plain version: K1 equal, K2 and K5
-    bit-equal, K3, K4 and K6 within their tolerances in the call's dtype
+    """Each captured call through its plain version: K1 equal, K2, K5 and
+    K7 bit-equal, K3, K4 and K6 within their tolerances in the call's dtype
     (``stem_limit``, ``bwd_limit``).  Prints and returns the summary."""
     import torch
 
-    from trcnn_torch.ops import nms, roi_align, roi_pool, stem
+    from trcnn_torch.ops import frozen_bn, nms, roi_align, roi_pool, stem
 
     for args, (kp, kv) in captured.get("nms", []):
         pp, pv = nms.greedy_keep_plain(*args)
@@ -1726,6 +1815,11 @@ def replay(captured, what) -> str:
     for args, out in captured.get("roi_align", []):
         if not torch.equal(bits(out), bits(roi_align.roi_align_plain(*args))):
             raise AssertionError(f"K5 differs from plain on the {what}'s inputs")
+        torch.cuda.empty_cache()
+    for args, out in captured.get("frozen_bn", []):
+        if not torch.equal(out, frozen_bn.frozen_bn_plain(*args)):
+            raise AssertionError(f"K7 differs from plain on the {what}'s inputs "
+                                 f"{signature(args)[0]}")
         torch.cuda.empty_cache()
     worst = {}
     for key, plain, limit in (("stem", stem.stem_block1_plain, stem_limit),
@@ -1742,7 +1836,7 @@ def replay(captured, what) -> str:
     shapes = {k: sorted({str(tuple(a[0].shape) if torch.is_tensor(a[0]) else a[0]) for a, _ in v})
               for k, v in captured.items() if k != "nms"}
     msg = (f"{what}: captured {', '.join(f'{k} x{len(v)}' for k, v in captured.items())}; "
-           f"plain replay agrees (K1 equal, K2 and K5 bit-equal"
+           f"plain replay agrees (K1 equal, K2, K5 and K7 bit-equal"
            + "".join(f", {k} at most {w:.2f} of its limit" for k, w in worst.items())
            + f"); feat shapes {shapes}")
     phase(msg)
@@ -2405,27 +2499,14 @@ def phase_large_map(dev, by_path):
     torch.cuda.empty_cache()
 
 
-def autograd_frozen_bn(self, x):
-    """FrozenBatchNorm's forward as plain autograd ops (the fold, the casts,
-    the multiply and the add each a node), its design before the written-out
-    backward: the same values, for the R1 turns only."""
-    import torch
-
-    inv = self.scale / torch.sqrt(self.var + self.eps)
-    shift = self.bias - self.mean * inv
-    return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
-
-
 def phase_r1_cost(dev):
     """The ResNet-101 train step at batch 8 with the res3-res5 FrozenBN
-    leaves' gradients through FrozenBatchNorm's written-out backward (this
-    tree), through plain autograd ops (``autograd_frozen_bn``), and without
-    them (the leaves set to take none, as before R1), in turns: without,
-    written-out, autograd, autograd, written-out, without; 4 steps each."""
+    leaves' gradients (the epilogues' written-out backward) and without them
+    (the leaves set to take none, as before R1), in turns: without, with,
+    with, without; 4 steps each."""
     import torch
 
     from trcnn_torch.entry import train_entry
-    from trcnn_torch.models import resnet
     from trcnn_torch.train.optim import is_frozen
 
     step_fn, (state, batch) = train_entry(dev, backbone="resnet101")
@@ -2433,29 +2514,19 @@ def phase_r1_cost(dev):
               if is_frozen(k, "resnet101") and "bn" in k
               and not k.startswith(("extractor.bn1", "extractor.res2"))]
     step_fn(state, batch)
-    written_out = resnet.FrozenBatchNorm.forward
-    arms = {"without": (False, written_out), "written-out": (True, written_out),
-            "autograd": (True, autograd_frozen_bn)}
-    ms = {arm: [] for arm in arms}
-    try:
-        for arm in ("without", "written-out", "autograd", "autograd", "written-out", "without"):
-            with_grads, forward = arms[arm]
-            resnet.FrozenBatchNorm.forward = forward
-            for p in leaves:
-                p.requires_grad_(with_grads)
-            times = []
-            for _ in range(4):
-                t0 = time.perf_counter()
-                step_fn(state, batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms[arm].append(statistics.median(times))
-    finally:
-        resnet.FrozenBatchNorm.forward = written_out
-    phase(f"R1: ResNet-101 train step b=8, median ms in turns, the {len(leaves)} FrozenBN "
-          f"leaves' gradients through the written-out backward "
-          f"{', '.join(f'{t:.2f}' for t in ms['written-out'])}; through autograd's ops "
-          f"{', '.join(f'{t:.2f}' for t in ms['autograd'])}; without them "
+    ms = {"with": [], "without": []}
+    for arm in ("without", "with", "with", "without"):
+        for p in leaves:
+            p.requires_grad_(arm == "with")
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[arm].append(statistics.median(times))
+    phase(f"R1: ResNet-101 train step b=8, median ms in turns, with the {len(leaves)} FrozenBN "
+          f"leaves' gradients {', '.join(f'{t:.2f}' for t in ms['with'])}; without them "
           f"{', '.join(f'{t:.2f}' for t in ms['without'])}")
     del state, batch
     torch.cuda.empty_cache()
@@ -4784,6 +4855,7 @@ def main() -> int:
     phase_card()
     phase_build()
     rec = phase_kernels(dev)
+    phase_frozen_bn(dev, rec)
     for backbone in BACKBONES:
         phase_small_parity(dev, backbone)
         phase_small_parity_bf16(dev, backbone)

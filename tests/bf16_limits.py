@@ -174,8 +174,10 @@ def gradient_chains(what, got, ref, x, check=True):
 def fused_rounding():
     """The port with one bf16 rounding fewer at every layer: a convolution
     or matmul and its bias rounded once (a bias folded into ``F.conv2d``),
-    a FrozenBN's multiply and add rounded once (the BN folded)."""
+    a FrozenBN's multiply and add rounded once (the BN folded), in every
+    epilogue's plain version (``frozen_bn.affine``, the CPU's path)."""
     from trcnn_torch.models import resnet, roi_head, rpn, vgg16
+    from trcnn_torch.ops import frozen_bn as fbn
 
     def conv_nchw(x, conv, relu=True):
         y = F.conv2d(x.float(), conv.weight.float(), conv.bias.float(),
@@ -185,21 +187,19 @@ def fused_rounding():
     def dense(x, layer):
         return F.linear(x.float(), layer.weight.float(), layer.bias.float()).to(x.dtype)
 
-    def frozen_bn(self, x):
-        inv = self.scale / torch.sqrt(self.var + self.eps)
-        shift = self.bias - self.mean * inv
+    def affine(x, scale, bias, mean, var, eps):
+        inv = scale / torch.sqrt(var + eps)
+        shift = bias - mean * inv
         return (x.float() * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
 
-    saved = (vgg16.conv_nchw, rpn.conv_nchw, roi_head.dense, resnet.dense,
-             resnet.FrozenBatchNorm.forward)
+    saved = (vgg16.conv_nchw, rpn.conv_nchw, roi_head.dense, resnet.dense, fbn.affine)
     vgg16.conv_nchw = rpn.conv_nchw = conv_nchw
     roi_head.dense = resnet.dense = dense
-    resnet.FrozenBatchNorm.forward = frozen_bn
+    fbn.affine = affine
     try:
         yield
     finally:
-        (vgg16.conv_nchw, rpn.conv_nchw, roi_head.dense, resnet.dense,
-         resnet.FrozenBatchNorm.forward) = saved
+        (vgg16.conv_nchw, rpn.conv_nchw, roi_head.dense, resnet.dense, fbn.affine) = saved
 
 
 class Bf16Accumulation(torch.overrides.TorchFunctionMode):

@@ -19,8 +19,8 @@ from trcnn_torch import _build, config
 from trcnn_torch.cli import add_common_flags, evaluate, forward, parity, train
 from trcnn_torch.entry import dryrun_multichip, entry, train_entry
 from trcnn_torch.eval import Evaluator
-from trcnn_torch.models import make_model
-from trcnn_torch.ops import nms, quant, roi_align, roi_pool, stem
+from trcnn_torch.models import make_model, resnet
+from trcnn_torch.ops import frozen_bn, nms, quant, roi_align, roi_pool, stem
 from trcnn_torch.train import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,6 +131,9 @@ def test_non_cpu_tensors_never_take_the_plain_path():
     with pytest.raises(ValueError):
         quant.int8_matmul(torch.empty((32, 16), dtype=torch.int8, device="meta"),
                           torch.empty((8, 16), dtype=torch.int8, device="meta"))
+    with pytest.raises(ValueError):
+        frozen_bn.frozen_bn(torch.empty((1, 8, 4, 4), device="meta"),
+                            resnet.FrozenBatchNorm(8, device="meta"))
     # the kernel wrappers refuse CPU tensors outright
     with pytest.raises(ValueError):
         nms.greedy_keep_cuda(torch.zeros((8, 4)), torch.ones(8, dtype=torch.bool), 0.7, 4)
@@ -144,6 +147,8 @@ def test_non_cpu_tensors_never_take_the_plain_path():
             torch.zeros(s) for s in ((64, 3, 3, 3), (64,), (64, 64, 3, 3), (64,))))
     with pytest.raises(ValueError):
         roi_align.roi_align_cuda(torch.zeros((1, 4, 4, 8)), torch.zeros((1, 2, 4)))
+    with pytest.raises(ValueError):
+        frozen_bn.frozen_bn_cuda(torch.zeros((1, 8, 4, 4)), *torch.ones((4, 8)), 1e-5)
     with pytest.raises(ValueError):
         roi_align.roi_align_backward_cuda((1, 4, 4, 8), torch.float32, torch.zeros((1, 2, 4)),
                                           torch.zeros((1, 2, 7, 7, 8)))

@@ -28,7 +28,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem", "roi_align", "roi_align_bwd")
+KERNELS = ("nms", "roi_pool", "roi_pool_bwd", "stem", "roi_align", "roi_align_bwd",
+           "frozen_bn")
 # the launch counters' names: one per kernel, K4's large-map variant apart
 # (it lives in libroi_pool_bwd.so)
 COUNTERS = KERNELS + ("roi_pool_bwd_large",)

@@ -20,6 +20,9 @@ bias.  Rounding follows flax's order in the compute dtype: the convolution
 is rounded, then the FrozenBN's multiply and its add are each rounded
 (``resnet.py:46-48``; the BN is not folded into the convolution, which
 would round differently in bf16), then the residual add and the ReLU.
+Each convolution's FrozenBN, residual add and ReLU run as one epilogue
+(``trcnn_torch/ops/frozen_bn.py``: kernel K7 on the card), the projecting
+shortcut's FrozenBN inside its block's last one.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from trcnn_torch.models.roi_head import dense
+from trcnn_torch.ops.frozen_bn import frozen_bn
 
 # parameters frozen in detection training besides every FrozenBN leaf
 # (trcnn/train/optim.py:28)
@@ -52,42 +56,9 @@ class FrozenBatchNorm(nn.Module):
             p.fill_(fill)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _FrozenBN.apply(x, self.scale, self.bias, self.mean, self.var, self.eps)
-
-
-class _FrozenBN(torch.autograd.Function):
-    """y = x * inv + shift with inv = scale / sqrt(var + eps) and shift =
-    bias - mean * inv: the fold in float32, then the multiply and the add
-    each rounded to x.dtype.  One autograd node instead of the dozen of the
-    fold's and the casts' ops: backward gives dx = g * inv in x.dtype, as
-    autograd through the forward does, and the four leaves' gradients from
-    two per-channel float32 sums, sum(g) and sum(g * x) (the product
-    rounded to x.dtype, as autograd's is), through the fold's chain rule in
-    float32."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, mean, var, eps):
-        std = torch.sqrt(var + eps)
-        inv = scale / std
-        shift = bias - mean * inv
-        inv_x = inv.to(x.dtype).view(1, -1, 1, 1)
-        if any(ctx.needs_input_grad[1:5]):
-            ctx.save_for_backward(x, inv_x, scale, mean, inv, std)
-        else:
-            ctx.save_for_backward(None, inv_x, None, None, None, None)
-        return x * inv_x + shift.to(x.dtype).view(1, -1, 1, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, inv_x, scale, mean, inv, std = ctx.saved_tensors
-        dx = g * inv_x if ctx.needs_input_grad[0] else None
-        if x is None:
-            return dx, None, None, None, None, None
-        d_shift = g.sum((0, 2, 3), dtype=torch.float32)
-        d_inv = (g * x).sum((0, 2, 3), dtype=torch.float32) - mean * d_shift
-        d_scale = d_inv / std
-        d_var = -d_inv * scale / (std * std) / (2 * std)
-        return dx, d_scale, d_shift, -inv * d_shift, d_var, None
+        """bn(x) alone; the model runs each FrozenBN inside its epilogue
+        (:func:`trcnn_torch.ops.frozen_bn.frozen_bn`)."""
+        return frozen_bn(x, self, relu=False)
 
 
 def _conv(in_ch: int, out_ch: int, k: int, stride: int = 1, device=None) -> nn.Conv2d:
@@ -136,11 +107,12 @@ class Bottleneck(nn.Module):
         self.bn3 = FrozenBatchNorm(out_ch, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = self.proj_bn(conv(x, self.proj)) if self.project else x
-        y = torch.relu(self.bn1(conv(x, self.conv1)))
-        y = torch.relu(self.bn2(conv(y, self.conv2)))
-        y = self.bn3(conv(y, self.conv3))
-        return torch.relu(y + residual)
+        y = frozen_bn(conv(x, self.conv1), self.bn1)
+        y = frozen_bn(conv(y, self.conv2), self.bn2)
+        y = conv(y, self.conv3)
+        if self.project:
+            return frozen_bn(y, self.bn3, proj=(conv(x, self.proj), self.proj_bn))
+        return frozen_bn(y, self.bn3, residual=x)
 
 
 class ResStage(nn.Sequential):
@@ -169,7 +141,7 @@ class ResNet101C4(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)      # channels-last NCHW view
         with torch.no_grad():                          # the frozen stem
-            x = torch.relu(self.bn1(conv(x, self.conv1)))
+            x = frozen_bn(conv(x, self.conv1), self.bn1)
             x = self.res2(max_pool(x))
         x = self.res4(self.res3(x))
         return x.permute(0, 2, 3, 1).contiguous()
